@@ -1,0 +1,801 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card, end to end.
+
+    python3 chip_smoke.py [--seed 0] [--changesets 3]
+
+Phases, each fatal on failure:
+
+1. build: the card's name and power limit; both CUDA kernels built with
+   ``nvcc`` for ``sm_90a`` from ``src/repro_torch/csrc``, in parallel.
+2. kernels: each kernel against its plain PyTorch version on the card, bit
+   for bit, at edge cases (PAD rows, wildcard-only and 32-pattern banks,
+   duplicate, absent and skewed queries, both sides).
+3. small: the paper's running example, and a small id-space stream with the
+   Football and Location interests, through ``IrapEngine`` on the card; every
+   named set equals the pure-Python oracle's.
+4. full scale: Football and Location over replicas of DBpedia-like size
+   (the Location replica holds ~0.7M places' rows, several million triples)
+   and changesets of ~10^5 rows a side. Run once through the kernels, with
+   the launch counters set to 0 just before and read just after, and once
+   with the plain versions on the same card; every output store (τ', ρ', r,
+   r_i, r', a, a_i) must be bit-identical.
+5. timing: each kernel at the full-scale shapes, against its plain version
+   and the card's bound; one JSON line ``{"kernels": [...]}``. Then one
+   more changeset per interest under ``torch.profiler``: the device's busy
+   share and where its time goes.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``. The
+script exits non-zero, printing no result, when no CUDA card is available
+or when it is not run from a checkout of the repository.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+SRC = REPO / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12  # H100 SXM rate outside the tensor cores (fp32 table entry)
+
+A = "rdf:type"
+FOOTBALL = (
+    [
+        ("?footballer", A, "dbo:SoccerPlayer"),
+        ("?footballer", "foaf:name", "?name"),
+        ("?footballer", "dbo:team", "?team"),
+        ("?team", "rdfs:label", "?teamName"),
+    ],
+    [],
+)
+LOCATION = (
+    [
+        ("?location", A, "?type"),
+        ("?location", "wgs:long", "?long"),
+        ("?location", "wgs:lat", "?lat"),
+        ("?location", "rdfs:label", "?label"),
+        ("?location", "dbo:abstract", "?abstract"),
+    ],
+    [("?location", "dcterms:subject", "?subject")],
+)
+OUT_FIELDS = ("r", "r_i", "r_prime", "a", "a_i")
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# id-space DBpedia-like data (the templates of data/changeset_gen.py)
+# ---------------------------------------------------------------------------
+
+VOCAB = [
+    A, "dbp:goals", "foaf:name", "dbo:team", "rdfs:label", "wgs:lat", "wgs:long",
+    "dbo:abstract", "dcterms:subject", "foaf:homepage", "dbo:SoccerPlayer",
+    "dbo:Place", "foaf:Person", "dbo:Work", "dbp:prop0", "dbp:prop1", "dbp:prop2",
+    "dbp:prop3",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Scale:
+    n_athletes: int
+    n_places: int
+    n_other: int
+    n_teams: int
+    adds: int
+    removes: int
+
+
+# Location: ~0.7M DBpedia places with their type/label/lat/long/abstract/
+# subject rows; athletes, clubs and other entities in the ratios of the
+# reference's benchmark generator; changesets of ~10^5 rows a side.
+FULL = Scale(n_athletes=100_000, n_places=700_000, n_other=3_500_000, n_teams=25_000,
+             adds=100_000, removes=100_000)
+SMALL = Scale(n_athletes=30, n_places=60, n_other=200, n_teams=8, adds=200, removes=100)
+
+
+def make_dictionary_class():
+    from repro_torch.core import Dictionary
+
+    class IdSpaceDictionary(Dictionary):
+        """The vocabulary by name; entity and literal ids as reserved ranges.
+
+        Strings for millions of entities would only be looked up by the
+        engine to size its signature tables, so the generator works in id
+        space and the dictionary counts reserved ids.
+        """
+
+        def __init__(self):
+            super().__init__()
+            for term in VOCAB:
+                super().encode_term(term)
+            self.n_ids = len(self._id_to_term)
+
+        def reserve(self, n: int) -> int:
+            start = self.n_ids
+            self.n_ids += int(n)
+            return start
+
+        def __len__(self) -> int:
+            return self.n_ids
+
+        def encode_term(self, term: str) -> int:
+            tid = self.lookup(term)
+            if tid is None:
+                raise KeyError(f"{term} is not in the id-space vocabulary")
+            return tid
+
+        @property
+        def id_capacity(self) -> int:
+            n = max(self.n_ids, 2)
+            return 1 << (n - 1).bit_length()
+
+    return IdSpaceDictionary
+
+
+def rows_of(*cols) -> np.ndarray:
+    return np.stack([np.broadcast_to(np.asarray(c, np.int64), np.shape(cols[0])) for c in cols],
+                    axis=1).astype(np.int32)
+
+
+ROW = np.dtype([("s", "<i4"), ("p", "<i4"), ("o", "<i4")])
+
+
+def as_records(rows: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(rows, dtype=np.int32).view(ROW).ravel()
+
+
+def unique_rows(rows: np.ndarray) -> np.ndarray:
+    return np.unique(as_records(rows)).view(np.int32).reshape(-1, 3)
+
+
+class IdSpaceStream:
+    """A DBpedia-Live-like dump and changeset stream built with numpy in id space.
+
+    Entity templates follow ``repro_torch/data/changeset_gen.py``: athletes
+    (type, name, team + the team's label, goals, sometimes a homepage),
+    places (type, label, lat, long, mostly an abstract, half a subject),
+    other entities (Person or Work, name, 1-4 numeric properties). A
+    changeset removes random live rows, adds new athletes and places, updates
+    athletes' goals (remove + add) and fills up with other entities.
+    """
+
+    def __init__(self, dictionary, scale: Scale, seed: int, n_changesets: int):
+        self.d, self.scale = dictionary, scale
+        self.rng = np.random.default_rng(seed)
+        v = {t: dictionary.lookup(t) for t in VOCAB}
+        self.v = v
+        self.num = dictionary.reserve(1000)  # the literals "0" .. "999"
+        self.cat = dictionary.reserve(40)
+        # "%.4f" values of [-90, 90) and [-180, 180), fewer for a small dump
+        self.n_lat = min(1_800_000, 10 * scale.n_places)
+        self.n_long = min(3_600_000, 20 * scale.n_places)
+        self.lat = dictionary.reserve(self.n_lat)
+        self.long = dictionary.reserve(self.n_long)
+        self.team_base = dictionary.reserve(2 * scale.n_teams)  # entity, label
+
+        teams = self.team_base + 2 * np.arange(scale.n_teams)
+        team_rows = rows_of(teams, v["rdfs:label"], teams + 1)
+        ath = self._athletes(scale.n_athletes, np.ones(scale.n_athletes, bool))
+        self.athletes = ath["ids"]
+        places = self._places(scale.n_places, np.ones(scale.n_places, bool))
+        others = self._others(scale.n_other)
+        self.football_init = np.concatenate([ath["rows"], team_rows])
+        self.location_init = places
+        dump = np.concatenate([ath["rows"], team_rows, places, others])
+        cap = dump.shape[0] + n_changesets * (scale.adds + 1000) * 2
+        self.pool = np.empty((cap, 3), np.int32)
+        self.pool[: dump.shape[0]] = dump
+        self.alive = np.zeros(cap, bool)
+        self.alive[: dump.shape[0]] = True
+        self.size = dump.shape[0]
+        # every dump athlete has a goals row; track where it lives in the pool
+        self.goals_at = np.flatnonzero(ath["rows"][:, 1] == v["dbp:goals"])
+        check(self.goals_at.shape[0] == scale.n_athletes, "dump athletes carry goals")
+
+    def _ids(self, n: int, width: int) -> np.ndarray:
+        return self.d.reserve(width * n) + width * np.arange(n)
+
+    def _athletes(self, n: int, full: np.ndarray) -> dict:
+        rng, v, s = self.rng, self.v, self.scale
+        a = self._ids(n, 3)  # entity, name literal, homepage literal
+        team = self.team_base + 2 * rng.integers(0, s.n_teams, n)
+        has_goals = full | (rng.random(n) < 0.7)
+        has_home = rng.random(n) < 0.3
+        parts = [
+            rows_of(a, v[A], v["dbo:SoccerPlayer"]),
+            rows_of(a, v["foaf:name"], a + 1),
+            rows_of(a, v["dbo:team"], team),
+            rows_of(a[has_goals], v["dbp:goals"], self.num + rng.integers(0, 300, n)[has_goals]),
+            rows_of(a[has_home], v["foaf:homepage"], a[has_home] + 2),
+        ]
+        return {"ids": a, "rows": np.concatenate(parts), "team_rows": rows_of(team, v["rdfs:label"], team + 1)}
+
+    def _places(self, n: int, full: np.ndarray) -> np.ndarray:
+        rng, v = self.rng, self.v
+        p = self._ids(n, 3)  # entity, label literal, abstract literal
+        has_abs = full | (rng.random(n) < 0.8)
+        has_subj = rng.random(n) < 0.5
+        return np.concatenate([
+            rows_of(p, v[A], v["dbo:Place"]),
+            rows_of(p, v["rdfs:label"], p + 1),
+            rows_of(p, v["wgs:lat"], self.lat + rng.integers(0, self.n_lat, n)),
+            rows_of(p, v["wgs:long"], self.long + rng.integers(0, self.n_long, n)),
+            rows_of(p[has_abs], v["dbo:abstract"], p[has_abs] + 2),
+            rows_of(p[has_subj], v["dcterms:subject"], self.cat + rng.integers(0, 40, n)[has_subj]),
+        ])
+
+    def _others(self, n: int, k=None) -> np.ndarray:
+        rng, v = self.rng, self.v
+        o = self._ids(n, 2)  # entity, name literal
+        cls = np.where(rng.random(n) < 0.5, v["foaf:Person"], v["dbo:Work"])
+        k = rng.integers(1, 5, n) if k is None else k
+        props = [
+            rows_of(o[k > j], v[f"dbp:prop{j}"], self.num + rng.integers(0, 1000, n)[k > j])
+            for j in range(4)
+        ]
+        return np.concatenate([rows_of(o, v[A], cls), rows_of(o, v["foaf:name"], o + 1), *props])
+
+    def changeset(self):
+        rng, s, v = self.rng, self.scale, self.v
+        live = np.flatnonzero(self.alive[: self.size])
+        rm = rng.choice(live, size=min(s.removes, live.shape[0]), replace=False)
+        n_ath, n_pl = int(s.adds * 0.02), int(s.adds * 0.06)
+        m_a = max(1, n_ath // 4)
+        ath = self._athletes(m_a, rng.random(m_a) < 0.5)
+        m_p = max(1, n_pl // 5)
+        adds = [ath["rows"], ath["team_rows"], self._places(m_p, rng.random(m_p) < 0.5)]
+        # goal updates for existing athletes (remove + add)
+        picks = np.unique(rng.integers(0, s.n_athletes, max(1, n_ath // 2)))
+        old = self.goals_at[picks]
+        rm = np.concatenate([rm, old[self.alive[old]]])
+        adds.append(rows_of(self.athletes[picks], v["dbp:goals"], self.num + rng.integers(0, 300, picks.shape[0])))
+        # bulk uninteresting churn up to the changeset's size
+        have = sum(x.shape[0] for x in adds)
+        if have < s.adds:
+            k = rng.integers(1, 5, (s.adds - have) // 3 + 1)
+            m_o = int(np.searchsorted(np.cumsum(2 + k), s.adds - have)) + 1
+            adds.append(self._others(m_o, k[:m_o]))
+
+        rm = np.unique(rm)
+        removes = unique_rows(self.pool[rm])
+        adds = unique_rows(np.concatenate(adds))
+        adds = adds[~np.isin(as_records(adds), as_records(removes))]
+        self.alive[rm] = False
+        # team labels are live dump rows: a changeset adds them again, as the
+        # string generator does, but the pool keeps one copy
+        team_label = (adds[:, 1] == v["rdfs:label"]) & (adds[:, 0] >= self.team_base) & (
+            adds[:, 0] < self.team_base + 2 * s.n_teams)
+        fresh = adds[~team_label]
+        new_goals = fresh[:, 1] == v["dbp:goals"]
+        n_new = fresh.shape[0]
+        check(self.size + n_new <= self.pool.shape[0], "id-space pool capacity")
+        self.pool[self.size: self.size + n_new] = fresh
+        self.alive[self.size: self.size + n_new] = True
+        # point updated athletes at their new goals rows
+        pos = {int(a): i for i, a in enumerate(self.athletes[picks])}
+        for off in np.flatnonzero(new_goals):
+            i = pos.get(int(fresh[off, 0]))
+            if i is not None:
+                self.goals_at[picks[i]] = self.size + off
+        self.size += n_new
+        return removes, adds
+
+
+# ---------------------------------------------------------------------------
+# phase helpers
+# ---------------------------------------------------------------------------
+
+def exprs(tcore):
+    return {
+        "football": tcore.InterestExpr.parse("synthetic://dbpedia-live", "local://football", *FOOTBALL),
+        "location": tcore.InterestExpr.parse("synthetic://dbpedia-live", "local://location", *LOCATION),
+    }
+
+
+@contextlib.contextmanager
+def plain_probe():
+    """Route the engine's lexicographic probes to the plain version on the card.
+
+    Used only for the comparison run; the bitset goes plain through the
+    engine's ``matcher`` argument.
+    """
+    from repro_torch.kernels import ops, ref
+
+    def merge_probe_plain(store, queries, side="left"):
+        if side == "left":
+            return ref.merge_probe_ref(store, queries)
+        return ref.merge_probe_right_ref(store, queries), None
+
+    saved = ops.merge_probe
+    ops.merge_probe = merge_probe_plain
+    try:
+        yield
+    finally:
+        ops.merge_probe = saved
+
+
+def store_valid(store) -> bool:
+    """Lex-sorted distinct rows, then PAD rows, with ``n`` the valid count."""
+    import torch
+    from repro_torch.core.triples import PAD, lex_less
+
+    spo, n = store.spo, int(store.n)
+    valid = spo[:, 0] != PAD
+    ok = int(valid.sum()) == n and bool(valid[:n].all())
+    if n > 1:
+        ok = ok and bool(lex_less(spo[: n - 1], spo[1:n]).all())
+    return ok and bool((spo[n:] == PAD).all()) and spo.dtype == torch.int32
+
+
+def stores_of(sub):
+    out = sub.last_outputs
+    return {**{f: getattr(out, f) for f in OUT_FIELDS}, "tau": sub.tau, "rho": sub.rho}
+
+
+def drive(tcore, dictionary, inits, changesets, caps, device, matcher=None):
+    """Register both interests and stream the changesets through ``IrapEngine``."""
+    engine = tcore.IrapEngine(dictionary, device=device)
+    subs = {
+        name: engine.register_interest(expr, caps[name], initial_target=inits[name], matcher=matcher)
+        for name, expr in exprs(tcore).items()
+    }
+    steps = []
+    for d_np, a_np in changesets:
+        stats = engine.process_changeset(d_np, a_np)
+        steps.append({
+            "stats": {st_name: st for st_name, st in zip(subs, stats)},
+            "stores": {name: stores_of(sub) for name, sub in subs.items()},
+        })
+    return subs, steps
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    card = out.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    paths = build.build()
+    log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, parallel)")
+    for name, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    return card
+
+
+def phase_kernels(device):
+    import torch
+    from repro_torch.kernels import merge_join, ref, triple_match
+
+    rng = np.random.default_rng(1)
+    pad = np.iinfo(np.int32).max
+    cases = 0
+    for n, n_pat, vocab in [(1, 1, 3), (4095, 3, 9), (4097, 32, 5), (1 << 20, 6, 1000), (7, 0, 3)]:
+        spo = rng.integers(0, vocab, size=(n, 3)).astype(np.int32)
+        spo[rng.random(n) < 0.1] = pad
+        pats = rng.integers(-1, vocab, size=(n_pat, 3)).astype(np.int32)
+        if n_pat:
+            pats[-1] = -1  # wildcard-only; with 32 patterns it sets bit 31
+        got = triple_match.triple_match_cuda(torch.as_tensor(spo, device=device),
+                                             torch.as_tensor(pats, device=device))
+        want = ref.pattern_bitmask_ref(torch.as_tensor(spo, device=device),
+                                       torch.as_tensor(pats, device=device))
+        check(torch.equal(got, want), f"triple_match != plain at n={n} P={n_pat}")
+        if n_pat == 32:
+            valid = torch.as_tensor(spo[:, 0] != pad, device=device)
+            check(bool((got[valid] < 0).all()), "bit 31 set on every valid row")
+        cases += 1
+    for s_rows, q_rows, vocab, skew in [(1, 5, 3, False), (3000, 5000, 30, False),
+                                        (200_000, 300_000, 200, False), (200_000, 300_000, 200, True)]:
+        rows = np.unique(rng.integers(0, vocab, size=(s_rows, 3)).astype(np.int32), axis=0)
+        store = np.full((2 * rows.shape[0], 3), pad, np.int32)
+        store[: rows.shape[0]] = rows
+        if skew:  # every query in one narrow region of the store
+            queries = np.repeat(rows[1000:1004], q_rows // 4, axis=0)
+        else:  # present (duplicated), absent and PAD queries
+            queries = np.concatenate([rows[rng.integers(0, rows.shape[0], q_rows // 2)],
+                                      rng.integers(0, vocab + 3, size=(q_rows // 2, 3)).astype(np.int32),
+                                      np.full((2, 3), pad, np.int32)])
+        st, qu = torch.as_tensor(store, device=device), torch.as_tensor(queries, device=device)
+        idx, found = merge_join.merge_probe_cuda(st, qu, "left")
+        w_idx, w_found = ref.merge_probe_ref(st, qu)
+        check(torch.equal(idx, w_idx) and torch.equal(found, w_found), f"merge_probe left != plain ({s_rows}, {q_rows})")
+        r_idx, none = merge_join.merge_probe_cuda(st, qu, "right")
+        check(none is None and torch.equal(r_idx, ref.merge_probe_right_ref(st, qu)),
+              f"merge_probe right != plain ({s_rows}, {q_rows})")
+        cases += 2
+    torch.cuda.synchronize()
+    log(f"kernels: {cases} kernel-vs-plain cases bit-identical on the card")
+
+
+def phase_small(tcore, device, seed):
+    import torch
+    from repro_torch.core.oracle import OracleEvaluator
+
+    # the paper's running example (tests/test_paper_example.py)
+    d = tcore.Dictionary()
+    expr = tcore.InterestExpr.parse(
+        source="http://live.dbpedia.org/changesets",
+        target="http://localhost:3030/target/sparql",
+        bgp=[("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?goals")],
+        ogp=[("?a", "foaf:homepage", "?page")],
+    )
+    tau0 = d.encode_triples([
+        ("dbr:Marcel", A, "dbo:Athlete"),
+        ("dbr:Cristiano_Ronaldo", A, "dbo:Athlete"),
+        ("dbr:Cristiano_Ronaldo", "dbp:goals", "96"),
+        ("dbr:Cristiano_Ronaldo", "foaf:homepage", '"http://cristianoronaldo.com"'),
+    ])
+    removed = d.encode_triples([
+        ("dbr:Marcel", "dbp:goals", "1"),
+        ("dbr:Marcel", "dbo:team", "dbr:FNFT"),
+        ("dbr:Tim%02", "foaf:name", '"Tim Berners-Lee"'),
+        ("dbr:Cristiano_Ronaldo", "dbp:goals", "96"),
+    ])
+    added = d.encode_triples([
+        ("dbr:Cristiano_Ronaldo", "dbp:goals", "216"),
+        ("dbr:Barack_Obama", "foaf:name", '"Barack Obama"'),
+        ("dbr:Barack_Obama", "foaf:homepage", '"http://www.barackobama.com/"'),
+        ("dbr:Rio_Ferdinand", A, "foaf:Person"),
+        ("dbr:Rio_Ferdinand", A, "dbo:Athlete"),
+        ("dbr:Rio_Ferdinand", "dbp:goals", "10"),
+        ("dbr:Arvid_Smit", A, "dbo:Athlete"),
+    ])
+    engine = tcore.IrapEngine(d, device=device)
+    sub = engine.register_interest(
+        expr, tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32), initial_target=tau0
+    )
+    check(sub.tau.spo.device.type == torch.device(device).type, "paper example runs on the card")
+    plan = tcore.compile_interest(expr, d)
+    as_set = lambda rows: {tuple(int(x) for x in r) for r in rows}  # noqa: E731
+    tau_set, rho_set = as_set(tau0), set()
+    for d_np, a_np in [(removed, added), (np.zeros((0, 3), np.int32),
+                                          d.encode_triples([("dbr:Arvid_Smit", "dbp:goals", "3")]))]:
+        out = sub.apply(d_np, a_np)
+        want = OracleEvaluator(plan).step(as_set(d_np), as_set(a_np), tau_set, rho_set)
+        got = {f: tcore.to_set(getattr(out, f)) for f in OUT_FIELDS}
+        got.update(tau1=tcore.to_set(sub.tau), rho1=tcore.to_set(sub.rho))
+        check(got == want, f"paper example differs from the oracle: {got} vs {want}")
+        tau_set, rho_set = want["tau1"], want["rho1"]
+    check(len(tau_set) == 7 and len(rho_set) == 2, "paper example: τ and ρ after the promotion")
+    log("small: paper running example (2 changesets) equals the oracle on the card")
+
+    # a small id-space stream, both interests, against the oracle
+    Dict = make_dictionary_class()
+    d = Dict()
+    stream = IdSpaceStream(d, SMALL, seed, n_changesets=2)
+    inits = {"football": stream.football_init, "location": stream.location_init}
+    changesets = [stream.changeset() for _ in range(2)]
+    big = tcore.StepCapacities(n_removed=512, n_added=512, tau=4096, rho=4096, pulls=4096, fanout=64,
+                               dedup_candidates=4096)
+    subs, steps = drive(tcore, d, inits, changesets, {"football": big, "location": big}, device)
+    for name, sub in subs.items():
+        orc = OracleEvaluator(sub.plan)
+        tau_set, rho_set = as_set(inits[name]), set()
+        for (d_np, a_np), step in zip(changesets, steps):
+            want = orc.step(as_set(d_np), as_set(a_np), tau_set, rho_set)
+            stores = step["stores"][name]
+            for f, key in [*((f, f) for f in OUT_FIELDS), ("tau", "tau1"), ("rho", "rho1")]:
+                check(tcore.to_set(stores[f]) == want[key], f"small stream {name}: {f} differs from the oracle")
+            tau_set, rho_set = want["tau1"], want["rho1"]
+        check(sub.rebuilds == 0, "small stream ran without reallocation")
+    log(f"small: id-space stream ({len(changesets)} changesets, Football + Location) equals the oracle")
+
+
+def full_caps(tcore):
+    """Capacities for the full-scale replicas (powers of two, as the engine doubles them)."""
+    common = dict(n_removed=1 << 17, n_added=1 << 17, fanout=8, dedup_candidates=1 << 19)
+    return {
+        "football": tcore.StepCapacities(tau=1 << 20, rho=1 << 18, pulls=1 << 17, **common),
+        "location": tcore.StepCapacities(tau=1 << 23, rho=1 << 20, pulls=1 << 18, **common),
+    }
+
+
+def phase_full(tcore, device, seed, n_changesets):
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    Dict = make_dictionary_class()
+    d = Dict()
+    stream = IdSpaceStream(d, FULL, seed, n_changesets)
+    inits = {"football": stream.football_init, "location": stream.location_init}
+    changesets = [stream.changeset() for _ in range(n_changesets)]
+    gen_s = time.perf_counter() - t0
+    log(f"full: data in {gen_s:.1f} s: dump {stream.size - sum(a.shape[0] for _, a in changesets):,} rows, "
+        f"{len(d):,} ids (id capacity {d.id_capacity:,}); τ0 football {inits['football'].shape[0]:,} rows, "
+        f"location {inits['location'].shape[0]:,} rows; changesets (removed, added) "
+        + ", ".join(f"({x.shape[0]:,}, {y.shape[0]:,})" for x, y in changesets))
+    caps = full_caps(tcore)
+
+    # the main path, through the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    subs, steps = drive(tcore, d, inits, changesets, caps, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"full: kernel run {wall:.2f} s (register + {n_changesets} changesets x 2 interests), "
+        f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
+    check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+    for i, step in enumerate(steps):
+        log(f"  changeset {i}: " + "; ".join(
+            f"{name} {st.elapsed_s * 1e3:.1f} ms (r {st.interesting_removed:,}, a {st.interesting_added:,}, "
+            f"ρ {st.potential_size:,}, τ {st.target_size:,})"
+            for name, st in step["stats"].items()))
+    for name, sub in subs.items():
+        log(f"  {name}: caps {dataclasses.asdict(sub.caps)}, reallocations {sub.rebuilds}")
+        check(int(sub.tau.n) > 0, f"{name}: τ is not empty")
+    for step in steps:
+        for name, stores in step["stores"].items():
+            for f, st in stores.items():
+                check(store_valid(st), f"{name}.{f}: a store holds sorted distinct rows then PAD")
+    kernel_stores = [{n: {f: (st.spo.clone(), int(st.n)) for f, st in stores.items()}
+                      for n, stores in step["stores"].items()} for step in steps]
+    kernel_ms = [{n: st.elapsed_s * 1e3 for n, st in step["stats"].items()} for step in steps]
+    del steps
+
+    # the same path with the plain versions on the same card
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_probe():
+        p_subs, p_steps = drive(tcore, d, inits, changesets, caps, device, matcher=ref.pattern_bitmask_ref)
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t0
+    check(kernels.launch_counts() == {k: 0 for k in launches}, "the plain run launched no kernel")
+    log(f"full: plain run {p_wall:.2f} s")
+    for i, step in enumerate(p_steps):
+        for name, stores in step["stores"].items():
+            for f, st in stores.items():
+                spo, n = kernel_stores[i][name][f]
+                check(int(st.n) == n and torch.equal(st.spo, spo),
+                      f"changeset {i} {name}.{f}: kernel run != plain run")
+    log(f"full: {len(p_steps)} changesets x 2 interests x 7 stores bit-identical, kernels vs plain")
+    for i, step in enumerate(p_steps):
+        log(f"  changeset {i} ms kernel/plain: " + "; ".join(
+            f"{n} {kernel_ms[i][n]:.1f}/{st.elapsed_s * 1e3:.1f}" for n, st in step["stats"].items()))
+    return subs, stream, changesets, launches
+
+
+def time_cuda(fn, iters: int, flush) -> float:
+    """Median ms of ``fn`` on the card, with L2 flushed before each launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_timing(tcore, device, subs, changesets, launches):
+    import torch
+    from repro_torch.kernels import merge_join, ref, triple_match
+
+    scratch = torch.empty(1 << 28, dtype=torch.uint8, device=device)  # 256 MiB > 50 MB L2
+    flush = lambda: scratch.zero_()  # noqa: E731
+    loc = subs["location"]
+    caps = loc.caps
+    # K1 at the A side of Location's last changeset: I = A ∪ ρ at capacity n_i
+    a_store, _ = tcore.from_array(torch.as_tensor(changesets[-1][1], device=device), caps.n_added)
+    i_set, _ = tcore.union(a_store, loc.rho, caps.n_i)
+    spo = i_set.spo
+    pats = torch.as_tensor(loc.plan.patterns, device=device)
+    n, p = spo.shape[0], pats.shape[0]
+    got = triple_match.triple_match_cuda(spo, pats)
+    want = ref.pattern_bitmask_ref(spo, pats)
+    k1_err = int((got.long() - want.long()).abs().max())
+    check(k1_err == 0, "triple_match at the main-path shape")
+    k1 = {
+        "name": "triple_match", "route": "cuda", "source": "src/repro_torch/csrc/triple_match.cu",
+        "replaces": "src/repro/kernels/triple_match.py:158", "launches": launches["triple_match"],
+        "max_abs_err": k1_err,
+        "ms": time_cuda(lambda: triple_match.triple_match_cuda(spo, pats), 50, flush),
+        "plain_ms": time_cuda(lambda: ref.pattern_bitmask_ref(spo, pats), 10, flush),
+    }
+    k1_bytes = n * 12 + p * 12 + n * 4
+    k1_ops = n * p * 7  # per pattern: 3 compares, 3 wildcard tests folded, 1 or
+    k1["bound_ms"], k1["bound_by"] = bound(k1_bytes, k1_ops)
+    k1["library_ms"] = None  # no single PyTorch call computes a multi-pattern bitset
+    log(f"timing: triple_match N={n:,} P={p}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+        f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+
+    # K2/K3 at two main-path shapes
+    tau = loc.tau.spo
+    r_prime = loc.last_outputs.r_prime.spo
+    subjects = torch.unique(i_set.spo[:, 0])
+    subjects = subjects[subjects != tcore.PAD][: caps.dedup_candidates]
+    lo_q = torch.full((caps.dedup_candidates, 3), tcore.PAD, dtype=torch.int32, device=device)
+    lo_q[: subjects.shape[0], 0] = subjects
+    lo_q[: subjects.shape[0], 1:] = int(np.iinfo(np.int32).min)
+    shapes = {
+        # difference(τ, r'): every τ row probed into the pulled set
+        "member": (r_prime, tau, "left"),
+        # prefix_range over τ by subject: the evaluator's candidate probes
+        "prefix": (tau, lo_q, "left"),
+    }
+    k2_rows = {}
+    for label, (store, queries, side) in shapes.items():
+        idx, found = merge_join.merge_probe_cuda(store, queries, side)
+        w_idx, w_found = ref.merge_probe_ref(store, queries)
+        err = max(int((idx.long() - w_idx.long()).abs().max()),
+                  int((found.long() - w_found.long()).abs().max()))
+        check(err == 0, f"merge_probe at the {label} shape")
+        c, q = store.shape[0], queries.shape[0]
+        touched, visits = search_footprint(store, queries, side)
+        row = {
+            "ms": time_cuda(lambda: merge_join.merge_probe_cuda(store, queries, side), 30, flush),
+            "plain_ms": time_cuda(lambda: ref.merge_probe_ref(store, queries), 5, flush),
+            "max_abs_err": err,
+        }
+        # bytes: the store rows this data's searches must read, each once, the
+        # queries read once, idx and found written once; operations: per row
+        # visit, a 3-column compare and the bound update
+        row["bound_ms"], row["bound_by"] = bound(touched * 12 + q * 12 + q * 5, visits * 8)
+        k2_rows[label] = row
+        log(f"timing: merge_probe {label} S={c:,} Q={q:,} (rows touched {touched:,}, visits {visits:,}): "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    k2 = {
+        "name": "merge_probe", "route": "cuda", "source": "src/repro_torch/csrc/merge_probe.cu",
+        "replaces": "src/repro/kernels/merge_join.py:81", "launches": launches["merge_probe"],
+        **k2_rows["member"],
+        "library_ms": None,  # no single PyTorch call searches rows lexicographically
+    }
+    return [k1, k2]
+
+
+def phase_profile(device, subs, stream):
+    """One more changeset per interest under torch.profiler: device busy
+    share over the changeset's wall time, and device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    d_np, a_np = stream.changeset()
+    for name, sub in subs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sub.apply(d_np, a_np)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: a CPU op's entry repeats its kernels' time
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(ms for _, _, ms in rows)
+        if not rows:
+            log(f"profile {name}: wall {wall_ms:.1f} ms; device time not measured (no device events)")
+            continue
+        groups = {}
+        for key, _, ms in rows:
+            k = key.lower()
+            group = ("triple_match kernel" if "triple_match" in k else
+                     "merge_probe kernel" if "merge_probe" in k else
+                     "sort" if "sort" in k or "radix" in k else
+                     "index/scatter/gather" if "index" in k or "scatter" in k or "gather" in k else
+                     "copy/fill" if "memcpy" in k or "memset" in k or "fill" in k or "copy" in k else
+                     "reduce/scan" if "reduce" in k or "scan" in k else "elementwise/other")
+            groups[group] = groups.get(group, 0.0) + ms
+        log(f"profile {name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for _, c, _ in rows)} device ops; by group: "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
+            log(f"  {ms:8.3f} ms  x{count:<5d} {key[:110]}")
+
+
+def search_footprint(store, queries, side: str):
+    """(distinct store rows, row visits) that the binary searches of these
+    queries need: the midpoints they visit at every level, and for the left
+    side the row at each result, which it reads to set ``found``."""
+    import torch
+    from repro_torch.core.triples import lex_less
+
+    c = store.shape[0]
+    lo = torch.zeros(queries.shape[0], dtype=torch.int64, device=queries.device)
+    hi = torch.full_like(lo, c)
+    rows, visits = [], 0
+    while True:
+        active = lo < hi
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        mid = (lo + hi) // 2
+        rows.append(torch.unique(mid[active]))
+        visits += n_active
+        row = store[mid.clamp(max=c - 1)]
+        go_right = lex_less(row, queries) if side == "left" else ~lex_less(queries, row)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    if side == "left":
+        rows.append(torch.unique(lo[lo < c]))
+        visits += queries.shape[0]
+    touched = int(torch.unique(torch.cat(rows)).shape[0]) if rows else 0
+    return touched, visits
+
+
+def bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--changesets", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository (src/repro_torch is missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
+        return 3
+    from repro_torch import core as tcore
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    t_start = time.perf_counter()
+    phase_build()
+    phase_kernels(device)
+    phase_small(tcore, device, args.seed)
+    subs, stream, changesets, launches = phase_full(tcore, device, args.seed, args.changesets)
+    table = phase_timing(tcore, device, subs, changesets, launches)
+    phase_profile(device, subs, stream)
+    mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    check(not mods, f"the port loaded JAX or the JAX package: {mods}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

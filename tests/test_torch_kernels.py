@@ -1,0 +1,193 @@
+"""Plain versions of the port's kernels against the JAX package (CPU, exact).
+
+K1 (triple_match) against ``triple_match_pallas`` in interpret mode and the
+``pattern_bitmask_ref`` oracle; K2/K3 (merge_probe) left and right against
+``merge_probe_ref``, ``ops.merge_probe(use_kernel=True)`` and
+``searchsorted_rows``. The CUDA kernels themselves are held against these
+plain versions on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import triples as jt  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.triple_match import BLOCK_ROWS, triple_match_pallas  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import build, merge_join, ops, ref, triple_match  # noqa: E402
+
+PAD = int(np.iinfo(np.int32).max)
+TILE = 128 * BLOCK_ROWS  # the TPU kernel's 4096-row tile
+
+
+def as_u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# K1: triple_match
+# ---------------------------------------------------------------------------
+
+def k1_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "tile":
+        spo = rng.integers(0, 9, size=(TILE, 3))
+        pats = np.array([[1, -1, 2], [-1, -1, -1], [3, 4, -1]])
+    elif name == "two_tiles_pad_rows":
+        spo = rng.integers(0, 9, size=(2 * TILE, 3))
+        spo[rng.random(2 * TILE) < 0.2] = PAD
+        pats = rng.integers(-1, 9, size=(7, 3))
+    elif name == "wildcard_only":
+        spo = rng.integers(0, 5, size=(TILE, 3))
+        spo[::5] = PAD
+        pats = np.full((1, 3), -1)
+    elif name == "bit31":
+        spo = rng.integers(0, 4, size=(TILE, 3))
+        spo[::9] = PAD
+        pats = rng.integers(-1, 4, size=(32, 3))
+        pats[31] = [-1, -1, -1]  # bit 31 set on every valid row
+    else:
+        raise KeyError(name)
+    return spo.astype(np.int32), pats.astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["tile", "two_tiles_pad_rows", "wildcard_only", "bit31"])
+def test_triple_match_plain_equals_pallas_interpret(name):
+    spo, pats = k1_case(name)
+    want = np.asarray(triple_match_pallas(jnp.asarray(spo), jnp.asarray(pats), interpret=True))
+    oracle = np.asarray(jref.pattern_bitmask_ref(jnp.asarray(spo), jnp.asarray(pats)))
+    got = ref.pattern_bitmask_ref(torch.as_tensor(spo), torch.as_tensor(pats))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(as_u32(got), want)
+    np.testing.assert_array_equal(as_u32(got), oracle)
+    if name == "bit31":
+        valid = spo[:, 0] != PAD
+        assert (as_u32(got)[valid] >> 31 == 1).all() and (got.numpy()[valid] < 0).all()
+        assert (got.numpy()[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("n", [TILE - 1, TILE + 1, 37])
+def test_triple_match_plain_across_tile_boundary(n):
+    rng = np.random.default_rng(n)
+    spo = rng.integers(0, 9, size=(n, 3)).astype(np.int32)
+    pats = np.array([[1, -1, 2], [-1, -1, -1], [-1, 3, -1]], np.int32)
+    want = np.asarray(jops.pattern_bitmask(jnp.asarray(spo), jnp.asarray(pats), use_kernel=True))
+    got = ops.pattern_bitmask(torch.as_tensor(spo), torch.as_tensor(pats))
+    np.testing.assert_array_equal(as_u32(got), want)
+
+
+def test_triple_match_rejects_more_than_32_patterns():
+    spo = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.pattern_bitmask(spo, torch.full((33, 3), -1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2/K3: merge_probe
+# ---------------------------------------------------------------------------
+
+def sorted_store(rows: np.ndarray, capacity: int) -> np.ndarray:
+    rows = np.unique(rows.astype(np.int32), axis=0)[:capacity]
+    out = np.full((capacity, 3), PAD, np.int32)
+    out[: rows.shape[0]] = rows
+    return out
+
+
+def k2_case(name):
+    """A store of 4096 rows and 2048 queries in every case (one JAX compile)."""
+    rng = np.random.default_rng(len(name))
+    if name == "random_with_pad_tail":
+        store = sorted_store(rng.integers(0, 30, size=(3000, 3)), 4096)
+        queries = rng.integers(0, 30, size=(2048, 3))
+    elif name == "duplicates_and_absent":
+        store = sorted_store(rng.integers(0, 12, size=(2600, 3)), 4096)
+        hits = store[rng.integers(0, 1000, size=1500)]
+        queries = np.concatenate([hits, hits[:348], rng.integers(12, 20, size=(200, 3))])
+    elif name == "skewed":
+        store = sorted_store(rng.integers(0, 40, size=(6000, 3)), 4096)
+        queries = np.repeat(store[100:104], 512, axis=0)  # one hot region
+    elif name == "full_store":
+        store = sorted_store(rng.integers(0, 20, size=(8000, 3)), 4096)
+        queries = rng.integers(0, 21, size=(2048, 3))
+    else:
+        raise KeyError(name)
+    return store, queries.astype(np.int32)
+
+
+K2_CASES = ["random_with_pad_tail", "duplicates_and_absent", "skewed", "full_store"]
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_merge_probe_plain_equals_reference(name):
+    store, queries = k2_case(name)
+    js, jq = jnp.asarray(store), jnp.asarray(queries)
+    ts, tq = torch.as_tensor(store), torch.as_tensor(queries)
+
+    idx, found = ops.merge_probe(ts, tq, side="left")
+    right, none = ops.merge_probe(ts, tq, side="right")
+    assert none is None and idx.dtype == torch.int32 and found.dtype == torch.bool
+
+    o_idx, o_found = jref.merge_probe_ref(js, jq)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(o_idx))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(o_found))
+    k_idx, k_found = jops.merge_probe(js, jq, use_kernel=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(k_idx))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(k_found))
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(jt.searchsorted_rows(js, jq, side="left"))
+    )
+    np.testing.assert_array_equal(
+        right.numpy(), np.asarray(jt.searchsorted_rows(js, jq, side="right"))
+    )
+    assert found.any() and (right >= idx).all()
+
+
+def test_merge_probe_pad_queries_follow_the_oracle():
+    """A PAD query is "found" in a store with a PAD tail, as in merge_probe_ref
+    (and triples.member); set algebra masks PAD rows out before it asks."""
+    store = sorted_store(np.arange(30).reshape(10, 3), 16)
+    queries = np.array([[PAD] * 3, [0, 1, 2], [PAD] * 3], np.int32)
+    o_idx, o_found = jref.merge_probe_ref(jnp.asarray(store), jnp.asarray(queries))
+    idx, found = ops.merge_probe(torch.as_tensor(store), torch.as_tensor(queries))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(o_idx))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(o_found))
+
+
+# ---------------------------------------------------------------------------
+# dispatch, counters and the build, without a card
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    kernels.reset_launch_counts()
+    spo = torch.zeros((8, 3), dtype=torch.int32)
+    ops.pattern_bitmask(spo, torch.full((2, 3), -1, dtype=torch.int32))
+    ops.merge_probe(spo, spo, side="left")
+    ops.merge_probe(spo, spo, side="right")
+    assert kernels.launch_counts() == {"triple_match": 0, "merge_probe": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_and_other_devices():
+    spo = torch.zeros((8, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        triple_match.triple_match_cuda(spo, spo[:1])
+    with pytest.raises(ValueError):
+        merge_join.merge_probe_cuda(spo, spo)
+    meta = torch.zeros((8, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.pattern_bitmask(meta, meta[:1])
+    with pytest.raises(ValueError):
+        ops.merge_probe(meta, meta)
+
+
+def test_build_targets_hopper_from_repo_sources():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    for name, src in build.SOURCES.items():
+        assert (build.CSRC_DIR / src).is_file()
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR and path == build.library_path(name)
