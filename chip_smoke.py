@@ -67,7 +67,18 @@ LOCATION = (
     ],
     [("?location", "dcterms:subject", "?subject")],
 )
+N_CATEGORIES = 40
+CATEGORIES = [f"dbc:Category{k}" for k in range(N_CATEGORIES)]
+
+
+def category_interest(k: int):
+    """Places of category k: type, subject k and label."""
+    return ([("?place", A, "dbo:Place"), ("?place", "dcterms:subject", CATEGORIES[k]),
+             ("?place", "rdfs:label", "?label")], [])
+
+
 OUT_FIELDS = ("r", "r_i", "r_prime", "a", "a_i")
+STORE_FIELDS = (*OUT_FIELDS, "tau", "rho")
 
 
 class SmokeFailure(RuntimeError):
@@ -130,9 +141,12 @@ def make_dictionary_class():
                 super().encode_term(term)
             self.n_ids = len(self._id_to_term)
 
-        def reserve(self, n: int) -> int:
+        def reserve(self, n: int, names=()) -> int:
+            """Reserve ``n`` ids; the first ``len(names)`` get those names."""
             start = self.n_ids
             self.n_ids += int(n)
+            for k, name in enumerate(names):
+                self._term_to_id[name] = start + k
             return start
 
         def __len__(self) -> int:
@@ -185,7 +199,7 @@ class IdSpaceStream:
         v = {t: dictionary.lookup(t) for t in VOCAB}
         self.v = v
         self.num = dictionary.reserve(1000)  # the literals "0" .. "999"
-        self.cat = dictionary.reserve(40)
+        self.cat = dictionary.reserve(N_CATEGORIES, names=CATEGORIES)
         # "%.4f" values of [-90, 90) and [-180, 180), fewer for a small dump
         self.n_lat = min(1_800_000, 10 * scale.n_places)
         self.n_long = min(3_600_000, 20 * scale.n_places)
@@ -241,7 +255,7 @@ class IdSpaceStream:
             rows_of(p, v["wgs:lat"], self.lat + rng.integers(0, self.n_lat, n)),
             rows_of(p, v["wgs:long"], self.long + rng.integers(0, self.n_long, n)),
             rows_of(p[has_abs], v["dbo:abstract"], p[has_abs] + 2),
-            rows_of(p[has_subj], v["dcterms:subject"], self.cat + rng.integers(0, 40, n)[has_subj]),
+            rows_of(p[has_subj], v["dcterms:subject"], self.cat + rng.integers(0, N_CATEGORIES, n)[has_subj]),
         ])
 
     def _others(self, n: int, k=None) -> np.ndarray:
@@ -434,8 +448,61 @@ def phase_kernels(device):
         check(none is None and torch.equal(r_idx, ref.merge_probe_right_ref(st, qu)),
               f"merge_probe right != plain ({s_rows}, {q_rows})")
         cases += 2
+    cases += bank_kernel_cases(device, rng)
     torch.cuda.synchronize()
     log(f"kernels: {cases} kernel-vs-plain cases bit-identical on the card")
+
+
+def bank_kernel_cases(device, rng) -> int:
+    """K4 (bank words) and K5 (fused lane bits) against their plain versions:
+    W = 1, 2 and 5; P not a multiple of 32 with bit 31 set; all-PAD bank rows
+    and PAD rows; 1, 4095, 4097 and ~10^5 rows; inactive members; nt = 1 and
+    32; lanes in the last word."""
+    import torch
+    from repro_torch.kernels import ref, triple_match_lanes, triple_match_words
+
+    pad = np.iinfo(np.int32).max
+    cases = 0
+
+    def bank(n_pat, vocab, dead):
+        pats = rng.integers(-1, vocab, size=(n_pat, 3)).astype(np.int32)
+        if n_pat:
+            pats[-1] = -1  # wildcard-only: the top bit of its word on every valid row
+        pats[list(dead)] = pad  # tombstones and padding
+        return pats
+
+    def rows(shape, vocab):
+        spo = rng.integers(0, vocab, size=(*shape, 3)).astype(np.int32)
+        spo[rng.random(shape) < 0.1] = pad
+        return spo
+
+    for n, n_pat, vocab, dead in [(1, 7, 3, ()), (4095, 32, 4, (3,)), (4097, 45, 5, (0, 40)),
+                                  (100_003, 160, 6, (31, 63, 100)), (4097, 64, 4, range(32, 63)),
+                                  (9, 0, 3, ())]:
+        spo = torch.as_tensor(rows((n,), vocab), device=device)
+        pats = torch.as_tensor(bank(n_pat, vocab, dead).reshape(-1, 3), device=device)
+        got = triple_match_words.triple_match_words_cuda(spo, pats)
+        want = ref.pattern_bitmask_words_ref(spo, pats)
+        check(torch.equal(got, want), f"triple_match_words != plain at n={n} P={n_pat}")
+        if n_pat and n_pat % 32 == 0:
+            check(bool((got[spo[:, 0] != pad, -1] < 0).all()), "bit 31 of the last word on every valid row")
+        cases += 1
+    for r, n, n_pat, nt, inactive in [(2, 1, 32, 1, ()), (3, 4095, 64, 32, (1,)), (4, 4097, 160, 6, (0, 3)),
+                                      (5, 100_003, 64, 3, (2, 4)), (2, 17, 32, 4, (0, 1))]:
+        spo_b = torch.as_tensor(rows((r, n), 4), device=device)
+        pats_np = bank(n_pat, 4, (n_pat // 2,))
+        lanes_np = rng.integers(0, n_pat, size=(r, nt)).astype(np.int32)
+        lanes_np[:, -1] = n_pat - 1  # a lane in the last word
+        active_np = np.ones(r, bool)
+        active_np[list(inactive)] = False
+        pats, lanes = torch.as_tensor(pats_np, device=device), torch.as_tensor(lanes_np, device=device)
+        active = torch.as_tensor(active_np, device=device)
+        got = triple_match_lanes.triple_match_lanes_cuda(spo_b, pats, lanes, active)
+        want = ref.pattern_lane_bits_ref(spo_b, pats, lanes, active)
+        check(torch.equal(got, want), f"triple_match_lanes != plain at R={r} n={n} nt={nt}")
+        check(bool((got[torch.as_tensor(~active_np, device=device)] == 0).all()), "inactive members give 0")
+        cases += 1
+    return cases
 
 
 def phase_small(tcore, device, seed):
@@ -511,6 +578,48 @@ def phase_small(tcore, device, seed):
         check(sub.rebuilds == 0, "small stream ran without reallocation")
     log(f"small: id-space stream ({len(changesets)} changesets, Football + Location) equals the oracle")
 
+    # the same through the Broker: the paper's example with three interests
+    # under three policies, then a small id-space stream with Football,
+    # Location and 8 category interests under all four; each fire against the
+    # oracle on the changeset composed since the subscriber's last fire
+    d = tcore.Dictionary()
+    tau0 = d.encode_triples([("dbr:Marcel", A, "dbo:Athlete"), ("dbr:Cristiano_Ronaldo", A, "dbo:Athlete"),
+                             ("dbr:Cristiano_Ronaldo", "dbp:goals", "96")])
+    paper_cs = [
+        (d.encode_triples([("dbr:Marcel", "dbp:goals", "1"), ("dbr:Cristiano_Ronaldo", "dbp:goals", "96")]),
+         d.encode_triples([("dbr:Cristiano_Ronaldo", "dbp:goals", "216"), ("dbr:Rio_Ferdinand", A, "dbo:Athlete"),
+                           ("dbr:Rio_Ferdinand", "dbp:goals", "10"), ("dbr:FNFT", A, "dbo:Team")])),
+        (np.zeros((0, 3), np.int32), d.encode_triples([("dbr:Arvid_Smit", A, "dbo:Athlete"),
+                                                        ("dbr:X", "dbo:team", "dbr:FNFT")])),
+        (d.encode_triples([("dbr:Rio_Ferdinand", "dbp:goals", "10")]),
+         d.encode_triples([("dbr:Arvid_Smit", "dbp:goals", "3")])),
+    ]
+    caps = tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32)
+    specs = [
+        ("athlete", ([("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?g")], [("?a", "foaf:homepage", "?p")]),
+         caps, "eager", tau0),
+        ("types", ([("?a", A, "dbo:Athlete")], []), caps, "every2", tau0),
+        ("teams", ([("?x", "dbo:team", "?t"), ("?t", A, "dbo:Team")], []), caps, "stale", tau0),
+    ]
+    fires = []
+    broker, _ = drive_broker(tcore, d, specs, paper_cs, device, lambda i, f: fires.append(f))
+    check(broker.device.type == "cuda", "the paper broker runs on the card")
+    n = engine_check(tcore, d, specs, paper_cs, fires, device, oracle=True)
+    log(f"small: paper example through the Broker (3 subscribers, {n} fires) equals the oracle")
+
+    d = make_dictionary_class()()
+    stream = IdSpaceStream(d, SMALL, seed + 1, BROKER_CHANGESETS)
+    changesets = [stream.changeset() for _ in range(BROKER_CHANGESETS)]
+    cat_caps = tcore.StepCapacities(n_removed=512, n_added=512, tau=1024, rho=1024, pulls=1024, fanout=64,
+                                    dedup_candidates=4096)
+    specs = broker_specs(big, big, cat_caps, stream.football_init, stream.location_init,
+                         category_targets(stream)[:8])
+    fires = []
+    drive_broker(tcore, d, specs, changesets, device, lambda i, f: fires.append(f))
+    n = engine_check(tcore, d, specs, changesets, fires, device, oracle=True)
+    log(f"small: id-space stream through the Broker ({len(specs)} subscribers, {BROKER_CHANGESETS} changesets "
+        f"+ flush, {n} fires) equals the oracle")
+
 
 def full_caps(tcore):
     """Capacities for the full-scale replicas (powers of two, as the engine doubles them)."""
@@ -551,7 +660,8 @@ def phase_full(tcore, device, seed, n_changesets):
     peak = torch.cuda.max_memory_allocated()
     log(f"full: kernel run {wall:.2f} s (register + {n_changesets} changesets x 2 interests), "
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
-    check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+    check(launches["triple_match"] > 0 and launches["merge_probe"] > 0,
+          f"a kernel of the path never launched: {launches}")
     for i, step in enumerate(steps):
         log(f"  changeset {i}: " + "; ".join(
             f"{name} {st.elapsed_s * 1e3:.1f} ms (r {st.interesting_removed:,}, a {st.interesting_added:,}, "
@@ -589,6 +699,338 @@ def phase_full(tcore, device, seed, n_changesets):
         log(f"  changeset {i} ms kernel/plain: " + "; ".join(
             f"{n} {kernel_ms[i][n]:.1f}/{st.elapsed_s * 1e3:.1f}" for n, st in step["stats"].items()))
     return subs, stream, changesets, launches
+
+
+# ---------------------------------------------------------------------------
+# the multi-subscriber broker
+# ---------------------------------------------------------------------------
+
+POLICIES = ("eager", "every2", "priority", "stale")
+BROKER_CHANGESETS = 4
+
+
+def make_policy(tcore, kind: str):
+    return {
+        "eager": tcore.PushPolicy(),
+        "every2": tcore.PushPolicy.every(2),
+        "priority": tcore.PushPolicy.priority_lane(),
+        "stale": tcore.PushPolicy.max_staleness(1e9),  # drained by the closing flush
+    }[kind]
+
+
+def category_targets(stream) -> list:
+    """τ0 of each category interest: the type, subject and label rows of the
+    dump's places of that category."""
+    loc, v = stream.location_init, stream.v
+    subj = loc[loc[:, 1] == v["dcterms:subject"]]
+    cat_of = np.full(int(loc[:, 0].max()) + 1, -1, np.int64)
+    cat_of[subj[:, 0]] = subj[:, 2] - stream.cat
+    keep = (((loc[:, 1] == v[A]) & (loc[:, 2] == v["dbo:Place"])) | (loc[:, 1] == v["rdfs:label"])
+            | (loc[:, 1] == v["dcterms:subject"]))
+    rows = loc[keep]
+    cat = cat_of[rows[:, 0]]
+    return [rows[cat == k] for k in range(N_CATEGORIES)]
+
+
+def broker_specs(football_caps, location_caps, category_caps, football_init, location_init, category_inits):
+    """(name, (bgp, ogp), caps, policy, τ0) of every subscriber: Football and
+    Location x 4 and one interest per category, a quarter of each cohort per
+    policy, each subscriber with its own replica."""
+    specs = []
+    for kind in POLICIES:
+        specs.append((f"football/{kind}", FOOTBALL, football_caps, kind, football_init))
+    for kind in POLICIES:
+        specs.append((f"location/{kind}", LOCATION, location_caps, kind, location_init))
+    for k, init in enumerate(category_inits):
+        kind = POLICIES[k % len(POLICIES)]
+        specs.append((f"category{k}/{kind}", category_interest(k), category_caps, kind, init))
+    return specs
+
+
+def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None):
+    """Subscribe ``specs`` and stream ``changesets`` through one ``Broker``,
+    then flush. The every(2) subscribers subscribe after the first changeset,
+    so that they and the max-staleness ones both have changesets pending at
+    the flush, which then fires two frontiers in one stacked pass.
+    ``on_fire(call, {name: stores})`` sees every call's fired subscribers.
+    With a list ``mem``, each step appends ("call", label, bytes allocated
+    before it, peak bytes allocated during it), the peak reset before each
+    step."""
+    import torch
+
+    broker = tcore.Broker(dictionary, device=device)
+    subs = {}
+
+    def step(label, fn):
+        if mem is None:
+            return fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        mem.append(("call", label, before, torch.cuda.max_memory_allocated()))
+        return out
+
+    def subscribe(spec):
+        name, (bgp, ogp), caps, kind, init = spec
+        expr = tcore.InterestExpr.parse("synthetic://dbpedia-live", f"local://{name}", bgp, ogp)
+        subs[name] = broker.subscribe(expr, caps, initial_target=init, policy=make_policy(tcore, kind))
+
+    def collect(outs):
+        names = {id(sub): name for name, sub in subs.items()}
+        fired = {}
+        for sub, out in zip(broker.subs, outs):
+            if out is not None:
+                fired[names[id(sub)]] = {**{f: getattr(out, f) for f in OUT_FIELDS}, "tau": sub.tau, "rho": sub.rho}
+        return fired
+
+    def subscribe_all(every2: bool):
+        for spec in specs:
+            if (spec[3] == "every2") == every2:
+                subscribe(spec)
+
+    step("subscribe", lambda: subscribe_all(False))
+    for i, (d_np, a_np) in enumerate(changesets):
+        if i == 1:
+            step("subscribe every2", lambda: subscribe_all(True))
+        on_fire(i, collect(step(f"changeset {i}", lambda: broker.process_changeset(d_np, a_np))))
+    on_fire(len(changesets), collect(step("flush", broker.flush)))
+    return broker, subs
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Route the broker's bank passes and probes to the plain versions on the card."""
+    from repro_torch.kernels import ops, ref
+
+    saved = (ops.pattern_bitmask_words, ops.pattern_lane_bits_batched)
+    ops.pattern_bitmask_words = lambda spo, patterns, matcher=None: ref.pattern_bitmask_words_ref(spo, patterns)
+    ops.pattern_lane_bits_batched = (
+        lambda spo_b, patterns, lanes, active=None, matcher=None: ref.pattern_lane_bits_ref(spo_b, patterns, lanes, active))
+    try:
+        with plain_probe():
+            yield
+    finally:
+        ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = saved
+
+
+class BankCallRecorder:
+    """Records the shapes of the broker's bank kernel calls, and keeps the
+    inputs the timing phase measures: the last words pass (the flush's) and
+    the widest lanes pass of a 3-pattern (category) cohort. With a list
+    ``mem``, each lanes pass (one a cohort pass, at its start) appends
+    ("pass", (Ncp, n_i, nt, active), peak bytes allocated so far)."""
+
+    def __init__(self, mem=None):
+        self.words_shapes, self.lanes_shapes = [], []
+        self.words_args = self.lanes_args = None
+        self.mem = mem
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+
+        self.saved = (ops.pattern_bitmask_words, ops.pattern_lane_bits_batched)
+        words, lanes_fn = self.saved
+
+        def rec_words(spo, patterns, matcher=None):
+            self.words_shapes.append(tuple(spo.shape))
+            self.words_args = (spo, patterns)
+            return words(spo, patterns, matcher=matcher)
+
+        def rec_lanes(spo_b, patterns, lanes, active=None, matcher=None):
+            n_active = int(active.sum()) if active is not None else spo_b.shape[0]
+            self.lanes_shapes.append((*spo_b.shape[:2], lanes.shape[1], n_active))
+            if self.mem is not None:
+                self.mem.append(("pass", self.lanes_shapes[-1], torch.cuda.max_memory_allocated()))
+            best = self.lanes_args
+            if lanes.shape[1] == 3 and (best is None or spo_b.shape[0] > best[0].shape[0]):
+                self.lanes_args = (spo_b, patterns, lanes, active)
+            return lanes_fn(spo_b, patterns, lanes, active, matcher=matcher)
+
+        ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = rec_words, rec_lanes
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = self.saved
+        return False
+
+
+def compose_np(pending, d2: np.ndarray, a2: np.ndarray):
+    """Def 6 on host arrays: <D1, A1> then <D2, A2> is <D1 ∪ D2, (A1 \\ D2) ∪ A2>."""
+    if pending is None:
+        return unique_rows(d2.reshape(-1, 3)), unique_rows(a2.reshape(-1, 3))
+    d1, a1 = pending
+    kept = a1[~np.isin(as_records(a1), as_records(d2))]
+    return unique_rows(np.concatenate([d1, d2])), unique_rows(np.concatenate([kept, a2]))
+
+
+def same_rows(a, b) -> bool:
+    """Two stores hold the same valid rows (capacities may differ)."""
+    import torch
+
+    n = int(a.n)
+    return n == int(b.n) and torch.equal(a.spo[:n], b.spo[:n])
+
+
+def engine_check(tcore, dictionary, specs, changesets, fires, device, oracle=False) -> int:
+    """Every subscriber's every fire equals the port's IrapEngine (or, for
+    small inputs, the pure-Python oracle) applied to the changeset composed
+    on the host since its last fire; returns the fires checked."""
+    from repro_torch.core.oracle import OracleEvaluator
+
+    as_set = lambda rows: {tuple(int(x) for x in r) for r in rows}  # noqa: E731
+    checked = 0
+    for name, (bgp, ogp), caps, kind, init in specs:
+        start = 1 if kind == "every2" else 0
+        expr = tcore.InterestExpr.parse("synthetic://dbpedia-live", f"local://{name}", bgp, ogp)
+        if oracle:
+            orc = OracleEvaluator(tcore.compile_interest(expr, dictionary))
+            tau_set, rho_set = as_set(init), set()
+        else:
+            sub = tcore.IrapEngine(dictionary, device=device).register_interest(expr, caps, initial_target=init)
+        pending = None
+        for i, fired in enumerate(fires):
+            if start <= i < len(changesets):
+                pending = compose_np(pending, *changesets[i])
+            got = fired.get(name)
+            if got is None:
+                continue
+            check(pending is not None, f"{name} fired with nothing pending at call {i}")
+            if oracle:
+                want = orc.step(as_set(pending[0]), as_set(pending[1]), tau_set, rho_set)
+                tau_set, rho_set = want["tau1"], want["rho1"]
+                for f, key in [*((f, f) for f in OUT_FIELDS), ("tau", "tau1"), ("rho", "rho1")]:
+                    check(tcore.to_set(got[f]) == want[key], f"{name} call {i}: {f} differs from the oracle")
+            else:
+                out = sub.apply(*pending)
+                for f in OUT_FIELDS:
+                    check(same_rows(got[f], getattr(out, f)), f"{name} call {i}: {f} differs from IrapEngine")
+                check(same_rows(got["tau"], sub.tau) and same_rows(got["rho"], sub.rho),
+                      f"{name} call {i}: τ/ρ differ from IrapEngine")
+            pending = None
+            checked += 1
+        check(pending is None, f"{name}: changesets left undelivered after the flush")
+    return checked
+
+
+def broker_capacities(tcore):
+    """Every subscriber starts at the single-changeset capacities (the
+    capacity guard doubles them for composed batches)."""
+    caps = full_caps(tcore)
+    category = tcore.StepCapacities(n_removed=1 << 17, n_added=1 << 17, tau=1 << 16, rho=1 << 16,
+                                    pulls=1 << 16, fanout=8, dedup_candidates=1 << 19)
+    return caps["football"], caps["location"], category
+
+
+def phase_broker(tcore, device, seed):
+    """48 subscribers in three shape cohorts over the full-scale dump: through
+    the kernels (the main path, counted), through the plain versions on the
+    same card (bit-identical), and against the port's IrapEngine."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    d = make_dictionary_class()()
+    stream = IdSpaceStream(d, FULL, seed, BROKER_CHANGESETS + 1)
+    changesets = [stream.changeset() for _ in range(BROKER_CHANGESETS)]
+    specs = broker_specs(*broker_capacities(tcore), stream.football_init, stream.location_init,
+                         category_targets(stream))
+    cat_rows = [spec[4].shape[0] for spec in specs[8:]]
+    log(f"broker: data in {time.perf_counter() - t0:.1f} s: {len(specs)} subscribers; τ0 rows football "
+        f"{stream.football_init.shape[0]:,}, location {stream.location_init.shape[0]:,}, category "
+        f"{min(cat_rows):,}-{max(cat_rows):,}; changesets (removed, added) "
+        + ", ".join(f"({x.shape[0]:,}, {y.shape[0]:,})" for x, y in changesets))
+
+    # the main path, through the kernels
+    fires, mem = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BankCallRecorder(mem) as rec:
+        broker, subs = drive_broker(tcore, d, specs, changesets, device, lambda i, f: fires.append(f), mem)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = max(m[3] for m in mem if m[0] == "call")
+    n_words = broker._ensure_bank_dev().shape[0] // 32
+    log(f"broker: kernel run {wall:.2f} s ({len(subs)} subscribers, {BROKER_CHANGESETS} changesets + flush), "
+        f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
+    check(len(subs) == 48, "48 subscribers")
+    check(n_words == 2, f"the bank pads to 2 words, not {n_words} ({broker.bank.n_lanes} lanes)")
+    for name in ("triple_match_words", "triple_match_lanes", "merge_probe"):
+        check(launches[name] > 0, f"{name} never launched on the broker's path: {launches}")
+    log(f"  bank: {broker.bank.n_lanes} lanes ({broker.bank.n_live} live) of "
+        f"{sum(s.plan.n_total for s in subs.values())} patterns, padded to {32 * n_words} rows, W = {n_words}")
+    log(f"  words passes (rows): {[s[0] for s in rec.words_shapes]}; lanes passes (Ncp, n_i, nt, active): "
+        f"{sorted(set(rec.lanes_shapes))}")
+    for i, st in enumerate(broker.stats):
+        label = f"changeset {i}" if i < BROKER_CHANGESETS else "flush"
+        per_pass = st.elapsed_s / st.n_cohort_passes * 1e3 if st.n_cohort_passes else 0.0
+        log(f"  {label}: {st.elapsed_s * 1e3:.1f} ms, {st.n_evaluated} fired, {st.n_cohort_passes} cohort passes "
+            f"({per_pass:.1f} ms a pass), builds {st.rejit_s * 1e3:.1f} ms, rows matched {st.rows_matched:,} "
+            f"(largest frontier {st.rows_distinct:,}), r {st.interesting_removed:,}, a {st.interesting_added:,}")
+    doublings = {}
+    for name, sub in subs.items():
+        group = name.split("/")[0].rstrip("0123456789") + "/" + name.split("/")[1]
+        spec_caps = next(spec[2] for spec in specs if spec[0] == name)
+        doublings[group] = doublings.get(group, 0) + (sub.caps.n_removed // spec_caps.n_removed).bit_length() - 1
+    log("  device memory by call (GiB allocated before / peak during, peak reset at each call; within a "
+        "call, the peak so far at the start of each cohort pass (Ncp, n_i, nt, active)):")
+    line = []
+    for m in mem:
+        if m[0] == "pass":
+            line.append(f"{m[1]} {m[2] / 2**30:.2f}")
+        else:
+            log(f"    {m[1]}: {m[2] / 2**30:.2f}/{m[3] / 2**30:.2f}" + (f"; passes {', '.join(line)}" if line else ""))
+            line = []
+    log(f"  step builds {broker.rejit_count} (cohort {sum(broker.cohort_compiles.values())}, words "
+        f"{broker.words_compiles}); capacity doublings by subscriber group {doublings}; batch doublings "
+        f"{broker.batch_grows}, decays {broker.batch_shrinks}")
+    n_stores = 0
+    for fired in fires:
+        for name, stores in fired.items():
+            for f, st in stores.items():
+                check(store_valid(st), f"broker {name}.{f}: a store holds sorted distinct rows then PAD")
+                n_stores += 1
+    log(f"broker: {n_stores} stores sorted, distinct and PAD-tailed")
+
+    # the same path with the plain versions on the same card
+    log(f"broker: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the plain run "
+        "(the kernel run's replicas and kept fires)")
+    kernels.reset_launch_counts()
+    compared = [0]
+
+    def compare(i, fired):
+        check(sorted(fired) == sorted(fires[i]), f"call {i}: the plain run fired other subscribers")
+        for name, stores in fired.items():
+            for f, st in stores.items():
+                want = fires[i][name][f]
+                check(int(st.n) == int(want.n) and torch.equal(st.spo, want.spo),
+                      f"call {i} {name}.{f}: kernel run != plain run")
+                compared[0] += 1
+
+    t0 = time.perf_counter()
+    with plain_ops():
+        p_broker, _ = drive_broker(tcore, d, specs, changesets, device, compare)
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t0
+    check(all(n == 0 for n in kernels.launch_counts().values()), "the plain run launched no kernel")
+    log(f"broker: plain run {p_wall:.2f} s; {compared[0]} stores bit-identical, kernels vs plain; ms per call "
+        "kernel/plain: " + ", ".join(f"{a.elapsed_s * 1e3:.1f}/{b.elapsed_s * 1e3:.1f}"
+                                     for a, b in zip(broker.stats, p_broker.stats)))
+    del p_broker
+
+    # every fire against the port's single-interest engine
+    t0 = time.perf_counter()
+    n_checked = engine_check(tcore, d, specs, changesets, fires, device)
+    log(f"broker: {n_checked} fires equal the port's IrapEngine on the host-composed changesets "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del fires
+    return broker, stream, rec, launches
 
 
 def time_cuda(fn, iters: int, flush) -> float:
@@ -686,43 +1128,113 @@ def phase_timing(tcore, device, subs, changesets, launches):
     return [k1, k2]
 
 
-def phase_profile(device, subs, stream):
-    """One more changeset per interest under torch.profiler: device busy
-    share over the changeset's wall time, and device time by kernel."""
+def bank_timing(rec, launches, flush):
+    """K4 at the flush fire's deleted-side shape and K5 at the category
+    cohort's widest added-side shape, as the broker's main path gave them."""
+    import torch
+    from repro_torch.core.triples import PAD
+    from repro_torch.kernels import ref, triple_match_lanes, triple_match_words
+
+    spo, bank = rec.words_args
+    n, n_pat = spo.shape[0], bank.shape[0]
+    w = max(1, -(-n_pat // 32))
+    # the work this run's data needs: valid rows against live bank rows
+    # (PAD rows and all-PAD bank rows, padding and tombstones, match nothing)
+    n_valid = int((spo[:, 0] != PAD).sum())
+    n_live = int((bank != PAD).any(dim=1).sum())
+    got = triple_match_words.triple_match_words_cuda(spo, bank)
+    err = int((got.long() - ref.pattern_bitmask_words_ref(spo, bank).long()).abs().max())
+    check(err == 0, "triple_match_words at the main-path shape")
+    k4 = {
+        "name": "triple_match_words", "route": "cuda", "source": "src/repro_torch/csrc/triple_match_words.cu",
+        "replaces": "src/repro/kernels/triple_match.py:187", "launches": launches["triple_match_words"],
+        "max_abs_err": err,
+        "ms": time_cuda(lambda: triple_match_words.triple_match_words_cuda(spo, bank), 50, flush),
+        "plain_ms": time_cuda(lambda: ref.pattern_bitmask_words_ref(spo, bank), 10, flush),
+    }
+    # each row read once and its W words written once; per valid row and
+    # live bank row about 7 integer operations (3 compares, 3 wildcard
+    # tests, 1 or)
+    k4["bound_ms"], k4["bound_by"] = bound(n * (12 + 4 * w) + n_pat * 12, n_valid * n_live * 7)
+    k4["library_ms"] = None  # no single PyTorch call computes a multi-pattern bank bitset
+    log(f"timing: triple_match_words N={n:,} ({n_valid:,} valid) W={w} ({n_live} live bank rows): "
+        f"{k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, "
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+
+    spo_b, bank, lanes, active = rec.lanes_args
+    r, n, nt = spo_b.shape[0], spo_b.shape[1], lanes.shape[1]
+    r_active = int(active.sum())
+    n_valid = int(((spo_b[..., 0] != PAD) & (active[:, None] != 0)).sum())
+    got = triple_match_lanes.triple_match_lanes_cuda(spo_b, bank, lanes, active)
+    err = int((got.long() - ref.pattern_lane_bits_ref(spo_b, bank, lanes, active).long()).abs().max())
+    check(err == 0, "triple_match_lanes at the main-path shape")
+    k5 = {
+        "name": "triple_match_lanes", "route": "cuda", "source": "src/repro_torch/csrc/triple_match_lanes.cu",
+        "replaces": "src/repro/kernels/triple_match.py:373", "launches": launches["triple_match_lanes"],
+        "max_abs_err": err,
+        "ms": time_cuda(lambda: triple_match_lanes.triple_match_lanes_cuda(spo_b, bank, lanes, active), 50, flush),
+        "plain_ms": time_cuda(lambda: ref.pattern_lane_bits_ref(spo_b, bank, lanes, active), 10, flush),
+    }
+    # active members' rows read once, every member's word written once; the
+    # nt compares only for active members' valid rows
+    k5["bound_ms"], k5["bound_by"] = bound(r_active * n * 12 + r * n * 4, n_valid * nt * 7)
+    k5["library_ms"] = None  # no single PyTorch call computes lane-routed bank bits
+    log(f"timing: triple_match_lanes R={r} ({r_active} active, {n_valid:,} valid rows) N={n:,} nt={nt}: "
+        f"{k5['ms']:.4f} ms, "
+        f"plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    torch.cuda.synchronize()
+    return [k4, k5]
+
+
+def profile_call(label: str, fn) -> None:
+    """Run ``fn`` once under torch.profiler: the device's busy share of the
+    wall time, and device time by kernel group."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: a CPU op's entry repeats its kernels' time
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, _, ms in rows)
+    if not rows:
+        log(f"profile {label}: wall {wall_ms:.1f} ms; device time not measured (no device events)")
+        return
+    groups = {}
+    for key, _, ms in rows:
+        k = key.lower()
+        group = ("triple_match_words kernel" if "triple_match_words" in k else
+                 "triple_match_lanes kernel" if "triple_match_lanes" in k else
+                 "triple_match kernel" if "triple_match" in k else
+                 "merge_probe kernel" if "merge_probe" in k else
+                 "sort" if "sort" in k or "radix" in k else
+                 "index/scatter/gather" if "index" in k or "scatter" in k or "gather" in k else
+                 "copy/fill" if "memcpy" in k or "memset" in k or "fill" in k or "copy" in k else
+                 "reduce/scan" if "reduce" in k or "scan" in k else "elementwise/other")
+        groups[group] = groups.get(group, 0.0) + ms
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for _, c, _ in rows)} device ops; by group: "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
+        log(f"  {ms:8.3f} ms  x{count:<5d} {key[:110]}")
+
+
+def phase_profile(subs, stream, broker, broker_stream):
+    """One more changeset per interest, and one more broker fire, profiled."""
     d_np, a_np = stream.changeset()
     for name, sub in subs.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sub.apply(d_np, a_np)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only: a CPU op's entry repeats its kernels' time
-        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_ms = sum(ms for _, _, ms in rows)
-        if not rows:
-            log(f"profile {name}: wall {wall_ms:.1f} ms; device time not measured (no device events)")
-            continue
-        groups = {}
-        for key, _, ms in rows:
-            k = key.lower()
-            group = ("triple_match kernel" if "triple_match" in k else
-                     "merge_probe kernel" if "merge_probe" in k else
-                     "sort" if "sort" in k or "radix" in k else
-                     "index/scatter/gather" if "index" in k or "scatter" in k or "gather" in k else
-                     "copy/fill" if "memcpy" in k or "memset" in k or "fill" in k or "copy" in k else
-                     "reduce/scan" if "reduce" in k or "scan" in k else "elementwise/other")
-            groups[group] = groups.get(group, 0.0) + ms
-        log(f"profile {name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-            f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for _, c, _ in rows)} device ops; by group: "
-            + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
-        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
-            log(f"  {ms:8.3f} ms  x{count:<5d} {key[:110]}")
+        profile_call(name, lambda: sub.apply(d_np, a_np))
+    d_np, a_np = broker_stream.changeset()
+    fired = []
+    profile_call("broker fire", lambda: fired.append(broker.process_changeset(d_np, a_np)))
+    st = broker.stats[-1]
+    log(f"  broker fire: {st.n_evaluated} subscribers fired, {st.n_cohort_passes} cohort passes")
 
 
 def search_footprint(store, queries, side: str):
@@ -786,8 +1298,12 @@ def main(argv=None) -> int:
     phase_kernels(device)
     phase_small(tcore, device, args.seed)
     subs, stream, changesets, launches = phase_full(tcore, device, args.seed, args.changesets)
+    broker, broker_stream, rec, broker_launches = phase_broker(tcore, device, args.seed)
     table = phase_timing(tcore, device, subs, changesets, launches)
-    phase_profile(device, subs, stream)
+    scratch = torch.empty(1 << 28, dtype=torch.uint8, device=device)  # 256 MiB > 50 MB L2
+    table += bank_timing(rec, broker_launches, scratch.zero_)
+    del scratch, rec
+    phase_profile(subs, stream, broker, broker_stream)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not mods, f"the port loaded JAX or the JAX package: {mods}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

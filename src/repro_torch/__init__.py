@@ -1,34 +1,50 @@
 """PyTorch + CUDA port of the iRap reproduction (``repro``), slice by slice.
 
-This slice holds the paper's single-interest pipeline: dictionary ids,
-triple-set algebra, interest compilation, side evaluation and the
-``IrapEngine`` (``repro_torch.core``), with hand-written Hopper kernels for
-the pattern bitset and the lexicographic probe (``repro_torch.kernels``).
-Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+It holds the paper's single-interest pipeline (dictionary ids, triple-set
+algebra, interest compilation, side evaluation, ``IrapEngine``) and the
+multi-subscriber ``Broker`` with its pattern bank, push policies and
+deferred, stacked flush (``repro_torch.core``), on hand-written Hopper
+kernels for the pattern bitset, the lexicographic probe, the bank words and
+the fused lane routing (``repro_torch.kernels``). Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import core, kernels
 from .core import (
+    Broker,
+    BrokerStats,
+    BrokerSubscription,
+    ChangesetBatch,
     Dictionary,
     EvalOutputs,
+    IncrementalPatternBank,
     InterestExpr,
     IrapEngine,
+    PushPolicy,
     StepCapacities,
     TripleStore,
     compile_interest,
+    make_broker_step,
     to_numpy,
     to_set,
 )
 
 __all__ = [
+    "Broker",
+    "BrokerStats",
+    "BrokerSubscription",
+    "ChangesetBatch",
     "Dictionary",
     "EvalOutputs",
+    "IncrementalPatternBank",
     "InterestExpr",
     "IrapEngine",
+    "PushPolicy",
     "StepCapacities",
     "TripleStore",
     "compile_interest",
     "core",
     "kernels",
+    "make_broker_step",
     "to_numpy",
     "to_set",
 ]

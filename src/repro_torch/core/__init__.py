@@ -1,34 +1,58 @@
-"""iRap core on PyTorch: the paper's single-interest pipeline (Defs 6, 11-18).
+"""iRap core on PyTorch: the single-interest pipeline (Defs 6, 11-18) and the
+multi-subscriber broker (stacked deferred flush, no subsumption lattice).
 
 Public API:
   Dictionary, TripleStore + set algebra      (repro_torch.core.{dictionary,triples})
   InterestExpr / compile_interest            (repro_torch.core.interest)
+  IncrementalPatternBank / build_pattern_bank
   make_side_evaluator / TripleIndex          (repro_torch.core.evaluation)
   make_interest_step / IrapEngine            (repro_torch.core.propagation)
-  load_dictionary / carry_subscription       (repro_torch.core.state)
+  compose_changesets / ChangesetBatch
+  Broker / PushPolicy / make_broker_step     (repro_torch.core.broker)
+  load_dictionary / carry_subscription /     (repro_torch.core.state)
+  carry_broker
 """
+from .broker import (
+    Broker,
+    BrokerStats,
+    BrokerSubscription,
+    PushPolicy,
+    make_broker_step,
+)
 from .dictionary import Dictionary, parse_triples
-from .evaluation import SideResult, TripleIndex, build_index, make_side_evaluator, probe
+from .evaluation import (
+    SideResult,
+    TripleIndex,
+    build_index,
+    make_side_evaluator,
+    probe,
+    probe_dyn,
+)
 from .interest import (
     CompiledInterest,
+    IncrementalPatternBank,
     InterestCompileError,
     InterestExpr,
+    PatternBank,
     TriplePattern,
+    build_pattern_bank,
     compile_interest,
     next_pow2,
 )
 from .oracle import OracleEvaluator
 from .propagation import (
+    ChangesetBatch,
     ChangesetStats,
     EvalOutputs,
     InterestSubscription,
     IrapEngine,
     StepCapacities,
     combine_side_results,
+    compose_changesets,
     make_interest_step,
     resolve_device,
 )
-from .state import carry_subscription, load_dictionary, load_store
+from .state import carry_broker, carry_subscription, load_dictionary, load_store
 from .triples import (
     PAD,
     WILDCARD,

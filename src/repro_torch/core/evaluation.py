@@ -9,7 +9,8 @@ the added side) into
   * pulls — the π' candidate-assertion retrievals from the target dataset τ.
 
 Dataflow, all at shapes fixed by the capacities (eager PyTorch, no host sync):
-  1. pattern bitset over M            (triple_match kernel)
+  1. pattern bitset over M            (triple_match kernel, or bits the
+                                      broker routes out of its bank pass)
   2. generation signature table       (scatter bits per binding  — π, Def 11)
   3. candidate pools + τ probes       (lexicographic probe kernel — π', Def 12)
   4. tree semijoin gating             (child_ok / edge_ok / full / linked_full)
@@ -98,10 +99,29 @@ def probe(
     Probes use the SPO index for subject-bound patterns and the OPS index for
     object-bound ones; non-prefix constant slots are post-filtered.
     """
+    pattern_dev = torch.as_tensor(np.asarray(pattern, np.int32), device=bound_vals.device)
+    return probe_dyn(index, pattern, pattern_dev, bound_slot, bound_vals, fanout)
+
+
+def probe_dyn(
+    index: TripleIndex,
+    pattern_host: np.ndarray,  # (3,) int32 host row: which slots are constant
+    pattern_dev: torch.Tensor,  # (3,) int32 device row: the constants' values
+    bound_slot: int,
+    bound_vals: torch.Tensor,
+    fanout: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`probe` with the pattern's values as a device tensor.
+
+    Which slots are constant (probe depth, index choice, post-filter set)
+    comes from the host row and is shared by a broker cohort; the values
+    differ per member and are read from ``pattern_dev``. Gives exactly the
+    values of :func:`probe` for equal inputs.
+    """
     if bound_slot == 1:
         raise ValueError("predicate-bound probes are unsupported (compile-time)")
-    vals = [int(pattern[k]) for k in range(3)]
-    const = [v >= 0 for v in vals]
+    const = [int(pattern_host[k]) >= 0 for k in range(3)]
+    vals = [pattern_dev[k] for k in range(3)]
     if bound_slot == 0:
         store = index.spo
         (c1_const, c1_val), (c2_const, c2_val) = (const[1], vals[1]), (const[2], vals[2])
@@ -113,11 +133,12 @@ def probe(
     b = bound_vals.shape[0]
     dev = bound_vals.device
     cap = store.capacity
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
     prefix = torch.stack(
         [
             bound_vals,
-            torch.full((b,), c1_val if c1_const else 0, dtype=torch.int32, device=dev),
-            torch.full((b,), c2_val if c2_const else 0, dtype=torch.int32, device=dev),
+            (c1_val if c1_const else zero).expand(b),
+            (c2_val if c2_const else zero).expand(b),
         ],
         dim=1,
     )
@@ -154,13 +175,20 @@ def make_side_evaluator(
     pull_capacity: int,
     matcher: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     dedup_candidates: int = 0,
-) -> Callable[[TripleStore, TripleIndex], SideResult]:
+    dynamic_patterns: bool = False,
+) -> Callable[..., SideResult]:
     """Build the one-side evaluator for a compiled interest.
 
     ``matcher`` (default :func:`repro_torch.kernels.ops.pattern_bitmask`)
     maps (spo int32[N, 3], patterns int32[P, 3]) to the int32[N] bitset.
     ``dedup_candidates > 0`` sort-uniques each candidate pool to that many
     slots before it is probed, reporting overflow when it does not fit.
+
+    ``dynamic_patterns=True`` builds the evaluator for the broker's cohort
+    path: the pattern *values* arrive per call as the ``patterns`` argument
+    (int32[n_total, 3] on the device) and the probes read them through
+    :func:`probe_dyn`; ``plan`` then supplies only the static structure
+    (kinds, slots, which slots are constant), shared by the cohort.
     """
     matcher = matcher or kops.pattern_bitmask
     dedup_cap = dedup_candidates
@@ -203,23 +231,41 @@ def make_side_evaluator(
     patterns_host = torch.as_tensor(plan.patterns, dtype=torch.int32)
     patterns_dev: Dict[torch.device, torch.Tensor] = {}
 
-    def evaluate(m: TripleStore, tgt: TripleIndex) -> SideResult:
-        """Classify one changeset side ``m`` against the target index ``tgt``."""
+    def evaluate(
+        m: TripleStore,
+        tgt: TripleIndex,
+        bits: torch.Tensor | None = None,
+        patterns: torch.Tensor | None = None,
+    ) -> SideResult:
+        """Classify one changeset side ``m`` against the target index ``tgt``.
+
+        ``bits`` (optional) is a precomputed int32[N] pattern bitset of
+        ``m``'s rows in this plan's local numbering (the broker routes it out
+        of one bank pass); it must equal ``matcher(m.spo, patterns)``.
+        ``patterns`` carries the pattern values in dynamic-patterns mode.
+        """
         spo = m.spo
         dev = spo.device
         n = m.capacity
-        pats = patterns_dev.get(dev)
-        if pats is None:
-            pats = patterns_dev[dev] = patterns_host.to(dev)
+        if dynamic_patterns:
+            if patterns is None:
+                raise ValueError("a dynamic-patterns evaluator takes the patterns per call")
+            pats = patterns
+        else:
+            pats = patterns_dev.get(dev)
+            if pats is None:
+                pats = patterns_dev[dev] = patterns_host.to(dev)
 
         def run_probe(j: int, bound_slot: int, bound_vals: torch.Tensor):
-            return probe(tgt, plan.patterns[j], bound_slot, bound_vals, K)
+            # the values come from the device copy either way: no upload per probe
+            return probe_dyn(tgt, plan.patterns[j], pats[j], bound_slot, bound_vals, K)
 
         def pad_vec(length: int) -> torch.Tensor:
             return torch.full((length,), PAD, dtype=torch.int32, device=dev)
 
         valid_row = spo[:, 0] != PAD
-        bits = matcher(spo, pats)
+        if bits is None:
+            bits = matcher(spo, pats)
         # repeated-variable-in-pattern equality constraints
         for j, eq in enumerate(plan.eq_pairs):
             if eq is not None:

@@ -1,6 +1,6 @@
 """Interest evaluation combination and update propagation (Defs 6, 13-18).
 
-Port of the per-interest half of ``repro.core.propagation``.
+Port of ``repro.core.propagation`` without the frontier chain.
 :func:`make_interest_step` builds the per-changeset step for one interest:
 
     d(i, D)        -> <r, r_i, r'>          (Def 13, over deleted triples)
@@ -14,6 +14,10 @@ The host-side :class:`IrapEngine` owns the capacities and the device. Where
 the reference re-jits at doubled capacities on overflow, the port
 reallocates at doubled capacities and runs the changeset again; the one
 host sync per changeset is that overflow flag.
+
+For the broker, :func:`compose_changesets` composes two changesets under
+Definition 6 and :class:`ChangesetBatch` accumulates the pending changesets
+of one consumption frontier on the broker's device.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ import torch
 
 from .dictionary import Dictionary
 from .evaluation import SideResult, build_index, make_side_evaluator
-from .interest import CompiledInterest, InterestExpr, compile_interest
-from .triples import TripleStore, difference, empty, from_array, union
+from .interest import CompiledInterest, InterestExpr, compile_interest, next_pow2
+from .triples import TripleStore, difference, empty, from_array, rehome, to_numpy, union
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,6 +119,154 @@ def combine_side_results(
     )
     out = EvalOutputs(r=r, r_i=r_i, r_prime=r_prime, a=a, a_i=a_i, overflow=overflow)
     return tau1, rho1, out
+
+
+def compose_changesets(
+    d1: TripleStore,
+    a1: TripleStore,
+    d2: TripleStore,
+    a2: TripleStore,
+    capacity: int,
+) -> Tuple[TripleStore, TripleStore, torch.Tensor]:
+    """Sequential composition of two changesets under Definition 6.
+
+    Applying ``<D1, A1>`` then ``<D2, A2>`` to any store equals applying the
+    single changeset ``<D1 ∪ D2, (A1 \\ D2) ∪ A2>`` (delete-first ordering:
+    late adds win over early deletes, late deletes cancel early adds).
+    Returns ``(d, a, overflowed)`` at the given output capacity.
+    """
+    d, ovf_d = union(d1, d2, capacity)
+    a, ovf_a = union(difference(a1, d2), a2, capacity)
+    return d, a, ovf_d | ovf_a
+
+
+@dataclasses.dataclass
+class ChangesetBatch:
+    """Accumulator of the composed, not yet delivered changesets of one
+    consumption frontier (``first_id``), on the broker's device.
+
+    Every subscriber whose policy deferred the same suffix of the stream
+    shares the batch. A batch of one changeset keeps the raw host arrays;
+    from the second on it holds two lex-sorted, deduplicated device stores
+    (D, A) at a power-of-two ``capacity``, which doubles on overflow
+    (``grow_count``) and decays back at drain points (:meth:`maybe_decay`).
+    The valid-row counts behind :meth:`row_bounds` are read from the device
+    lazily, once per fire, never on the ingest path. A fire takes the stores
+    as they are (:meth:`device_stores`); ``arrays()`` is the host copy for
+    the round-trip path.
+    """
+
+    removed: TripleStore | None  # composed D (device); None while n == 1
+    added: TripleStore | None  # composed A (device); None while n == 1
+    removed_np: np.ndarray  # raw first changeset (fast path for n == 1)
+    added_np: np.ndarray
+    n_changesets: int
+    first_id: int
+    last_id: int
+    capacity: int
+    device: torch.device
+    # valid rows of the composed stores, synced lazily by row_bounds()
+    # (None = stale)
+    d_rows: int | None = None
+    a_rows: int | None = None
+    grow_count: int = 0  # pow2 doublings since creation
+    _decay_streak: int = 0
+
+    @staticmethod
+    def fresh(removed: np.ndarray, added: np.ndarray, changeset_id: int, device) -> "ChangesetBatch":
+        cap = max(64, int(removed.shape[0]), int(added.shape[0]))
+        return ChangesetBatch(
+            removed=None,
+            added=None,
+            # copy: the batch may outlive the caller's (reusable) buffers
+            removed_np=np.array(removed, np.int32, copy=True),
+            added_np=np.array(added, np.int32, copy=True),
+            n_changesets=1,
+            first_id=changeset_id,
+            last_id=changeset_id,
+            capacity=next_pow2(cap),
+            device=torch.device(device),
+        )
+
+    def _upload(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int32).reshape(-1, 3), device=self.device)
+
+    def _materialize(self) -> None:
+        while True:
+            d, ovf_d = from_array(self._upload(self.removed_np), self.capacity)
+            a, ovf_a = from_array(self._upload(self.added_np), self.capacity)
+            if not bool(ovf_d | ovf_a):
+                self.removed, self.added = d, a
+                self.d_rows = self.a_rows = None
+                return
+            self.capacity *= 2
+            self.grow_count += 1
+
+    def extend(self, removed: np.ndarray, added: np.ndarray, changeset_id: int) -> None:
+        """Fold one more raw changeset into the composed batch."""
+        if self.removed is None:
+            self._materialize()
+        need = max(int(removed.shape[0]), int(added.shape[0]))
+        while self.capacity < need:
+            self.capacity *= 2
+            self.grow_count += 1
+        d2, _ = from_array(self._upload(removed), self.capacity)
+        a2, _ = from_array(self._upload(added), self.capacity)
+        while True:
+            d, a, overflow = compose_changesets(self.removed, self.added, d2, a2, self.capacity)
+            if not bool(overflow):
+                break
+            self.capacity *= 2
+            self.grow_count += 1
+        self.removed, self.added = d, a
+        self.d_rows = self.a_rows = None  # synced lazily at fire time
+        self.n_changesets += 1
+        self.last_id = changeset_id
+
+    def row_bounds(self) -> Tuple[int, int]:
+        """(D rows, A rows) of the composed batch, for capacity guards: exact
+        once composed, the raw row counts while it holds one changeset."""
+        if self.removed is None:
+            return int(self.removed_np.shape[0]), int(self.added_np.shape[0])
+        if self.d_rows is None:
+            self.d_rows = int(self.removed.n)
+            self.a_rows = int(self.added.n)
+        return self.d_rows, self.a_rows
+
+    def maybe_decay(self, patience: int = 2, floor: int = 64) -> bool:
+        """Re-home to a smaller power-of-two bucket after sustained under-fill.
+
+        When the composed live rows would pad to at most half the current
+        allocation for ``patience`` consecutive checks, both stores re-home
+        (a slice, no re-sort) to that bucket. Returns True when it shrank.
+        """
+        if self.removed is None:
+            return False
+        d_rows, a_rows = self.row_bounds()
+        want = max(floor, next_pow2(max(d_rows, a_rows, 1)))
+        if want > self.capacity // 2:
+            self._decay_streak = 0
+            return False
+        self._decay_streak += 1
+        if self._decay_streak < patience:
+            return False
+        self.removed = rehome(self.removed, want)
+        self.added = rehome(self.added, want)
+        self.capacity = want
+        self._decay_streak = 0
+        return True
+
+    def device_stores(self) -> Tuple[TripleStore, TripleStore]:
+        """The composed batch as device stores (D, A)."""
+        if self.removed is None:
+            self._materialize()
+        return self.removed, self.added
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The composed batch as dense host arrays (D, A)."""
+        if self.removed is None:
+            return self.removed_np, self.added_np
+        return to_numpy(self.removed), to_numpy(self.added)
 
 
 def make_interest_step(

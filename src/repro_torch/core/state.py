@@ -1,21 +1,25 @@
-"""Carry an engine's state from the reference package into the port.
+"""Carry an engine's or a broker's state from the reference package into the port.
 
 The port keeps no weights; its state is the dictionary and, per
-subscription, the target replica τ and the potential set ρ. These functions
-take that state as plain Python and numpy values, as
-``repro.core`` holds it (``Dictionary`` term list, ``TripleStore.spo`` and
-``.n`` as arrays), and rebuild it on a given device, so that both packages
+subscription, the target replica τ and the potential set ρ; a broker adds
+its pattern bank, each subscriber's lanes, policy and frontier, and its
+sequence clock. These functions take that state as plain Python and numpy
+values, as ``repro.core`` holds it (``Dictionary`` term list,
+``TripleStore.spo`` and ``.n`` as arrays, the bank's rows, references and
+free lanes), and rebuild it on a given device, so that both packages
 continue from the same state and produce the same stores.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .broker import Broker, BrokerSubscription, PushPolicy
 from .dictionary import Dictionary
-from .interest import InterestExpr
+from .interest import IncrementalPatternBank, InterestExpr
 from .propagation import InterestSubscription, IrapEngine, StepCapacities
 from .triples import PAD, TripleStore
 
@@ -66,3 +70,57 @@ def carry_subscription(
     sub.tau = load_store(tau, engine.device)
     sub.rho = load_store(rho, engine.device)
     return sub
+
+
+@dataclasses.dataclass(frozen=True)
+class SubscriberState:
+    """One broker subscriber as the reference holds it."""
+
+    expr: InterestExpr
+    caps: StepCapacities  # the subscriber's capacities at the carry
+    policy: PushPolicy
+    tau: StoreArrays  # capacity caps.tau
+    rho: StoreArrays  # capacity caps.rho
+    lanes: Tuple[int, ...]  # bank lane of each local pattern
+    since: int  # first unconsumed changeset id
+
+
+def carry_broker(
+    terms: Sequence[str],
+    bank_rows: Sequence[Optional[Tuple[int, int, int]]],
+    bank_refs: Sequence[int],
+    bank_free: Sequence[int],
+    subscribers: Sequence[SubscriberState],
+    seq: int,
+    last_cid: int,
+    device=None,
+) -> Broker:
+    """A port :class:`Broker` in a reference broker's state.
+
+    ``bank_rows`` / ``bank_refs`` / ``bank_free`` are the bank's lanes (None
+    for a tombstone), reference counts and free list in reuse order; ``seq``
+    is the sequence clock and ``last_cid`` the id of the last ingested
+    changeset. Pending changesets are not carried: every subscriber must have
+    consumed the stream (``since > last_cid``, as after a ``flush()``).
+    ``device`` is the :class:`Broker`'s.
+    """
+    broker = Broker(load_dictionary(terms), device=device)
+    broker.bank = IncrementalPatternBank.restore(bank_rows, bank_refs, bank_free)
+    bank = broker.bank.patterns_padded()
+    for st in subscribers:
+        if st.since <= last_cid:
+            raise ValueError("a subscriber has pending changesets; flush before the carry")
+        if np.asarray(st.tau[0]).shape[0] != st.caps.tau or np.asarray(st.rho[0]).shape[0] != st.caps.rho:
+            raise ValueError("τ and ρ capacities must equal caps.tau and caps.rho")
+        sub = BrokerSubscription(st.expr, broker.dictionary, st.caps, broker.device, policy=st.policy)
+        if len(st.lanes) != sub.plan.n_total or not np.array_equal(bank[list(st.lanes)], sub.plan.patterns):
+            raise ValueError(f"the lanes of {st.expr.target} do not hold its patterns in the bank")
+        sub.lanes = tuple(int(x) for x in st.lanes)
+        sub.since = int(st.since)
+        sub.tau = load_store(st.tau, broker.device)
+        sub.rho = load_store(st.rho, broker.device)
+        broker.subs.append(sub)
+        broker._lanes_raw += sub.plan.n_total
+    broker._seq = int(seq)
+    broker._last_cid = int(last_cid)
+    return broker

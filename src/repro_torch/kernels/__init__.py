@@ -1,14 +1,21 @@
 """The port's kernels: hand-written CUDA for Hopper, with plain PyTorch versions.
 
 ``ops`` is the entry point (kernel for CUDA tensors, plain version for CPU
-tensors); ``ref`` holds the plain versions; ``triple_match`` and
-``merge_join`` wrap the CUDA sources in ``csrc/``, built by ``build``.
+tensors); ``ref`` holds the plain versions; ``triple_match`` (K1),
+``merge_join`` (K2/K3), ``triple_match_words`` (K4) and
+``triple_match_lanes`` (K5) wrap the CUDA sources in ``csrc/``, built by
+``build``.
 """
 from typing import Dict
 
-from . import merge_join, ops, ref, triple_match
+from . import merge_join, ops, ref, triple_match, triple_match_lanes, triple_match_words
 
-_COUNTED = {"triple_match": triple_match, "merge_probe": merge_join}
+_COUNTED = {
+    "triple_match": triple_match,
+    "merge_probe": merge_join,
+    "triple_match_words": triple_match_words,
+    "triple_match_lanes": triple_match_lanes,
+}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -21,4 +28,7 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-__all__ = ["launch_counts", "merge_join", "ops", "ref", "reset_launch_counts", "triple_match"]
+__all__ = [
+    "launch_counts", "merge_join", "ops", "ref", "reset_launch_counts", "triple_match",
+    "triple_match_lanes", "triple_match_words",
+]

@@ -20,7 +20,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = {"triple_match": "triple_match.cu", "merge_probe": "merge_probe.cu"}
+SOURCES = {
+    "triple_match": "triple_match.cu",
+    "merge_probe": "merge_probe.cu",
+    "triple_match_words": "triple_match_words.cu",
+    "triple_match_lanes": "triple_match_lanes.cu",
+}
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

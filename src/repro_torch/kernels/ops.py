@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from . import merge_join, ref, triple_match
+from . import merge_join, ref, triple_match, triple_match_lanes, triple_match_words
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -28,6 +28,84 @@ def pattern_bitmask(spo: torch.Tensor, patterns: torch.Tensor) -> torch.Tensor:
     if _on_card(spo):
         return triple_match.triple_match_cuda(spo, patterns)
     return ref.pattern_bitmask_ref(spo, patterns)
+
+
+def pattern_bitmask_words(spo: torch.Tensor, patterns: torch.Tensor, *, matcher=None) -> torch.Tensor:
+    """int32[N, W] bank bitset over an arbitrary-size pattern bank,
+    ``W = max(1, ceil(P / 32))``: word ``w`` holds the match bits of
+    ``patterns[32w : 32w + 32]``, all W words from one pass over ``spo``.
+
+    ``matcher`` (optional, the :func:`pattern_bitmask` signature) is the
+    broker's testing hook: with it the bank is matched in one ``matcher``
+    pass per 32-lane word.
+    """
+    if matcher is not None:
+        n_words = max(1, -(-patterns.shape[0] // 32))
+        words = []
+        for w in range(n_words):
+            chunk = patterns[w * 32: (w + 1) * 32]
+            if chunk.shape[0] == 0:
+                words.append(torch.zeros(spo.shape[0], dtype=torch.int32, device=spo.device))
+            else:
+                words.append(matcher(spo, chunk))
+        return torch.stack(words, dim=1)
+    if _on_card(spo):
+        return triple_match_words.triple_match_words_cuda(spo, patterns)
+    return ref.pattern_bitmask_words_ref(spo, patterns)
+
+
+def pattern_lane_bits_batched(
+    spo_b: torch.Tensor,
+    patterns: torch.Tensor,
+    lanes: torch.Tensor,
+    active: torch.Tensor | None = None,
+    *,
+    matcher=None,
+) -> torch.Tensor:
+    """int32[R, N] bank match + lane routing for a member-stacked cohort:
+    member ``k``'s local pattern ``j`` reads bank lane ``lanes[k, j]`` over
+    its own rows ``spo_b[k]``; inactive (padding) members give 0.
+
+    With a custom ``matcher`` the composed path runs instead (bank words per
+    member through :func:`pattern_bitmask_words`, then
+    :func:`lane_bits_batched`), so the hook sees every bank pass.
+    """
+    if matcher is not None:
+        words = torch.stack([pattern_bitmask_words(s, patterns, matcher=matcher) for s in spo_b])
+        return lane_bits_batched(words, lanes, active=active)
+    if _on_card(spo_b):
+        if active is None:
+            active = torch.ones(spo_b.shape[0], dtype=torch.int32, device=spo_b.device)
+        return triple_match_lanes.triple_match_lanes_cuda(spo_b, patterns, lanes, active)
+    return ref.pattern_lane_bits_ref(spo_b, patterns, lanes, active)
+
+
+def lane_bits(words: torch.Tensor, lanes) -> torch.Tensor:
+    """int32[N] bitset in one plan's local numbering: bit ``j`` is bank lane
+    ``lanes[j]`` of ``words`` (int32[N, W]), i.e. what ``pattern_bitmask``
+    gives for the plan's own patterns. Plain PyTorch on every device."""
+    acc = torch.zeros(words.shape[0], dtype=torch.int32, device=words.device)
+    for j, lane in enumerate(lanes):
+        lane = int(lane)
+        acc = ref.or_bit(acc, ((words[:, lane // 32] >> (lane % 32)) & 1) == 1, j)
+    return acc
+
+
+def lane_bits_batched(
+    words: torch.Tensor, lanes_arr: torch.Tensor, active: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int32[R, N] lane routing for a cohort: member ``k``'s bit ``j`` is bank
+    lane ``lanes_arr[k, j]`` of ``words[k]`` (int32[R, N, W]); members with
+    ``active`` False (cohort padding) give 0. Plain PyTorch on every device."""
+    r, n, _ = words.shape
+    lanes = lanes_arr.to(words.device).long()
+    acc = torch.zeros((r, n), dtype=torch.int32, device=words.device)
+    for j in range(lanes.shape[1]):
+        w = torch.gather(words, 2, (lanes[:, j] // 32)[:, None, None].expand(r, n, 1))[..., 0]
+        acc = ref.or_bit(acc, ((w >> (lanes[:, j] % 32).to(torch.int32)[:, None]) & 1) == 1, j)
+    if active is not None:
+        acc = torch.where(active.to(words.device, torch.bool)[:, None], acc, torch.zeros_like(acc))
+    return acc
 
 
 def merge_probe(

@@ -42,6 +42,60 @@ def pattern_bitmask_ref(spo: torch.Tensor, patterns: torch.Tensor) -> torch.Tens
     return acc
 
 
+def or_bit(acc: torch.Tensor, cond: torch.Tensor, j: int) -> torch.Tensor:
+    """``acc | (cond << j)`` on int32 words (bit 31 included)."""
+    return torch.where(cond, acc | bit_word(j), acc)
+
+
+def pattern_bitmask_words_ref(spo: torch.Tensor, patterns: torch.Tensor) -> torch.Tensor:
+    """int32[N, W] bank bitset, ``W = ceil(P / 32)`` (min 1): word ``w``
+    carries the match bits of ``patterns[32w : 32w + 32]``.
+
+    Plain version of the words kernel (``triple_match_words_cuda``): one
+    :func:`pattern_bitmask_ref` pass per 32-pattern chunk.
+    """
+    n_words = max(1, -(-patterns.shape[0] // 32))
+    return torch.stack(
+        [pattern_bitmask_ref(spo, patterns[32 * w: 32 * w + 32]) for w in range(n_words)], dim=1
+    )
+
+
+def pattern_lane_bits_ref(
+    spo_b: torch.Tensor,
+    patterns: torch.Tensor,
+    lanes: torch.Tensor,
+    active: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """int32[R, N] bank match + lane routing + member mask.
+
+    ``spo_b``: int32[R, N, 3] member-stacked rows; ``patterns``: the bank,
+    int32[32W, 3]; ``lanes``: int32[R, nt]; ``active`` (optional): bool[R].
+    Member k's local bit ``j`` is the match bit of bank row ``lanes[k, j]``
+    over ``spo_b[k]`` (a lane past the bank's rows matches nothing);
+    inactive members give 0. Plain version of the lanes kernel
+    (``triple_match_lanes_cuda``). Lane ``L``'s bank bit is exactly the
+    match against bank row ``L``, so only the routed rows are compared.
+    """
+    r, n, _ = spo_b.shape
+    dev = spo_b.device
+    lanes = lanes.to(dev).long()
+    n_pat = patterns.shape[0]
+    inside = (lanes >= 0) & (lanes < n_pat)
+    pats = patterns.to(dev)[lanes.clamp(0, max(n_pat - 1, 0))] if n_pat else torch.zeros(
+        (r, lanes.shape[1], 3), dtype=torch.int32, device=dev)
+    valid = spo_b[..., 0] != PAD
+    if active is not None:
+        valid = valid & active.to(dev, torch.bool)[:, None]
+    acc = torch.zeros((r, n), dtype=torch.int32, device=dev)
+    for j in range(lanes.shape[1]):
+        m = valid & inside[:, j, None]
+        for k in range(3):
+            pk = pats[:, j, k, None]
+            m = m & ((pk == WILDCARD) | (spo_b[..., k] == pk))
+        acc = or_bit(acc, m, j)
+    return acc
+
+
 def _lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s_lt = a[..., 0] < b[..., 0]
     s_eq = a[..., 0] == b[..., 0]

@@ -11,9 +11,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels import merge_join, ref, triple_match  # noqa: E402
+from repro_torch.kernels import merge_join, ref, triple_match, triple_match_lanes, triple_match_words  # noqa: E402
 
 PAD = int(np.iinfo(np.int32).max)
+A = "rdf:type"
 
 
 @pytest.fixture()
@@ -65,8 +66,79 @@ def test_merge_probe_kernel_equals_plain(card, side, s_rows, q_rows, vocab):
     np.testing.assert_array_equal(idx.cpu().numpy(), w_idx.numpy())
 
 
+@pytest.mark.parametrize("n,n_pat,dead", [(1, 7, ()), (4095, 32, (3,)), (4097, 45, (0, 40)),
+                                           (100_003, 160, (31, 63, 100)), (4097, 64, tuple(range(32, 63))),
+                                           (9, 0, ())])
+def test_triple_match_words_kernel_equals_plain(card, n, n_pat, dead):
+    spo, pats = k1_inputs(n, n_pat, 6, n + n_pat)
+    pats = pats.reshape(-1, 3)
+    pats[list(dead)] = PAD  # tombstoned and padding bank rows
+    got = triple_match_words.triple_match_words_cuda(torch.as_tensor(spo, device=card),
+                                                     torch.as_tensor(pats, device=card))
+    want = ref.pattern_bitmask_words_ref(torch.as_tensor(spo), torch.as_tensor(pats))
+    assert tuple(got.shape) == (n, max(1, -(-n_pat // 32)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("r,n,n_pat,nt,inactive", [(2, 1, 32, 1, ()), (3, 4095, 64, 32, (1,)),
+                                                   (4, 4097, 160, 6, (0, 3)), (5, 100_003, 64, 3, (2, 4)),
+                                                   (2, 17, 32, 4, (0, 1))])
+def test_triple_match_lanes_kernel_equals_plain(card, r, n, n_pat, nt, inactive):
+    rng = np.random.default_rng(r * n)
+    spo_b = rng.integers(0, 4, size=(r, n, 3)).astype(np.int32)
+    spo_b[rng.random((r, n)) < 0.1] = PAD
+    pats = rng.integers(-1, 4, size=(n_pat, 3)).astype(np.int32)
+    pats[-1] = -1
+    pats[n_pat // 2] = PAD
+    lanes = rng.integers(0, n_pat, size=(r, nt)).astype(np.int32)
+    lanes[:, -1] = n_pat - 1  # a lane in the last word
+    active = np.ones(r, bool)
+    active[list(inactive)] = False
+    args = [torch.as_tensor(x) for x in (spo_b, pats, lanes, active)]
+    got = triple_match_lanes.triple_match_lanes_cuda(*(a.to(card) for a in args))
+    want = ref.pattern_lane_bits_ref(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_broker_on_the_card_equals_the_cpu(card):
+    """Three subscribers, two of them deferred, through Broker on both devices."""
+    d = tcore.Dictionary()
+    tau0 = d.encode_triples([("dbr:M", A, "dbo:Athlete"), ("dbr:C", A, "dbo:Athlete"), ("dbr:C", "dbp:goals", "96")])
+    changesets = [
+        (d.encode_triples([("dbr:C", "dbp:goals", "96")]),
+         d.encode_triples([("dbr:C", "dbp:goals", "216"), ("dbr:R", A, "dbo:Athlete"), ("dbr:F", A, "dbo:Team")])),
+        (np.zeros((0, 3), np.int32), d.encode_triples([("dbr:R", "dbp:goals", "10"), ("dbr:X", "dbo:team", "dbr:F")])),
+    ]
+    interests = [
+        (([("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?g")], [("?a", "foaf:homepage", "?p")]), None),
+        (([("?a", A, "dbo:Athlete")], []), tcore.PushPolicy.every(2)),
+        (([("?x", "dbo:team", "?t"), ("?t", A, "dbo:Team")], []), tcore.PushPolicy.max_staleness(1e9)),
+    ]
+    runs = {}
+    for device in ("cpu", card):
+        kernels.reset_launch_counts()
+        broker = tcore.Broker(d, device=device)
+        for (bgp, ogp), pol in interests:
+            broker.subscribe(tcore.InterestExpr.parse("s", "t", bgp, ogp),
+                             tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32),
+                             initial_target=tau0, policy=pol)
+        outs = [broker.process_changeset(*c) for c in changesets] + [broker.flush()]
+        stores = [None if o is None else getattr(o, f) for call in outs for o in call
+                  for f in ("r", "r_i", "r_prime", "a", "a_i")]
+        stores += [st for s in broker.subs for st in (s.tau, s.rho)]
+        runs[str(device)] = ([None if st is None else tcore.to_numpy(st) for st in stores], kernels.launch_counts())
+    (cpu_sets, cpu_counts), (gpu_sets, gpu_counts) = runs["cpu"], runs[str(card)]
+    assert len(cpu_sets) == len(gpu_sets)
+    for a, b in zip(cpu_sets, gpu_sets):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert all(n == 0 for n in cpu_counts.values())
+    for name in ("triple_match_words", "triple_match_lanes", "merge_probe"):
+        assert gpu_counts[name] > 0
+
+
 def test_paper_example_on_the_card_equals_the_cpu(card):
-    A = "rdf:type"
     runs = {}
     for device in ("cpu", card):
         d = tcore.Dictionary()
@@ -88,5 +160,5 @@ def test_paper_example_on_the_card_equals_the_cpu(card):
     (cpu_sets, cpu_counts), (gpu_sets, gpu_counts) = runs["cpu"], runs[str(card)]
     for a, b in zip(cpu_sets, gpu_sets):
         np.testing.assert_array_equal(a, b)
-    assert cpu_counts == {"triple_match": 0, "merge_probe": 0}
+    assert cpu_counts == {"triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0}
     assert gpu_counts["triple_match"] > 0 and gpu_counts["merge_probe"] > 0

@@ -15,7 +15,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b(?!_tor
 
 def test_import_loads_no_jax_and_no_reference_module():
     code = (
-        "import sys, repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.data\n"
+        "import sys, repro_torch, repro_torch.core, repro_torch.core.broker, repro_torch.kernels, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )
@@ -29,7 +29,7 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 def test_no_source_line_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 14
+    assert len(files) >= 20
     offenders = [
         f"{f.relative_to(SRC)}: {m.group(0).strip()}"
         for f in files

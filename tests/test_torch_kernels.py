@@ -168,7 +168,12 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.pattern_bitmask(spo, torch.full((2, 3), -1, dtype=torch.int32))
     ops.merge_probe(spo, spo, side="left")
     ops.merge_probe(spo, spo, side="right")
-    assert kernels.launch_counts() == {"triple_match": 0, "merge_probe": 0}
+    ops.pattern_bitmask_words(spo, torch.full((40, 3), -1, dtype=torch.int32))
+    ops.pattern_lane_bits_batched(spo[None], torch.full((32, 3), -1, dtype=torch.int32),
+                                  torch.zeros((1, 2), dtype=torch.int32))
+    assert kernels.launch_counts() == {
+        "triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0,
+    }
 
 
 def test_kernel_wrappers_refuse_cpu_and_other_devices():
