@@ -5,24 +5,38 @@
 
 Phases, each fatal on failure:
 
-1. build: the card's name and power limit; both CUDA kernels built with
+1. build: the card's name and power limit; the six CUDA sources built with
    ``nvcc`` for ``sm_90a`` from ``src/repro_torch/csrc``, in parallel.
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at edge cases (PAD rows, wildcard-only and 32-pattern banks,
-   duplicate, absent and skewed queries, both sides).
+   duplicate, absent and skewed queries, both sides; bank widths of 1, 2
+   and 5 words, all-tombstone words, inactive members; 1, 2 and 32
+   segments with bits above them; 1 to 64 virtual slots with dead ones).
 3. small: the paper's running example, and a small id-space stream with the
    Football and Location interests, through ``IrapEngine`` on the card; every
-   named set equals the pure-Python oracle's.
+   named set equals the pure-Python oracle's; then both through the default
+   ``Broker`` (subsumption lattice, delta frontier chains) against the
+   oracle.
 4. full scale: Football and Location over replicas of DBpedia-like size
    (the Location replica holds ~0.7M places' rows, several million triples)
    and changesets of ~10^5 rows a side. Run once through the kernels, with
    the launch counters set to 0 just before and read just after, and once
    with the plain versions on the same card; every output store (τ', ρ', r,
    r_i, r', a, a_i) must be bit-identical.
-5. timing: each kernel at the full-scale shapes, against its plain version
+5. broker: 48 subscribers (Football, Location and 40 category interests,
+   four policies; the categories' patterns ride virtual lanes under
+   Location's) through the default ``Broker`` over the same kind of dump: 4
+   changesets and a flush that fires two frontiers through the delta chain.
+   Through the kernels (counted), through the plain versions (bit-identical),
+   against the port's ``IrapEngine``, and through the kernels again with the
+   lattice and the chain off (bit-identical, fire by fire).
+6. fan-out: 256 eager subscribers drawn from 10 interests, each written four
+   ways, evaluated as 10 lane groups over 3 changesets; every member equals
+   its group and ``IrapEngine`` on its own expression.
+7. timing: each kernel at the full-scale shapes, against its plain version
    and the card's bound; one JSON line ``{"kernels": [...]}``. Then one
-   more changeset per interest under ``torch.profiler``: the device's busy
-   share and where its time goes.
+   more changeset per interest, and one more broker fire, under
+   ``torch.profiler``: the device's busy share and where its time goes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
@@ -449,6 +463,7 @@ def phase_kernels(device):
               f"merge_probe right != plain ({s_rows}, {q_rows})")
         cases += 2
     cases += bank_kernel_cases(device, rng)
+    cases += chain_kernel_cases(device, rng)
     torch.cuda.synchronize()
     log(f"kernels: {cases} kernel-vs-plain cases bit-identical on the card")
 
@@ -501,6 +516,69 @@ def bank_kernel_cases(device, rng) -> int:
         want = ref.pattern_lane_bits_ref(spo_b, pats, lanes, active)
         check(torch.equal(got, want), f"triple_match_lanes != plain at R={r} n={n} nt={nt}")
         check(bool((got[torch.as_tensor(~active_np, device=device)] == 0).all()), "inactive members give 0")
+        cases += 1
+    return cases
+
+
+def chain_kernel_cases(device, rng) -> int:
+    """K6 (segmented words) and K7 (lane refine) against their plain
+    versions. K6: 1, 2 and 32 segments; seg bits above n_seg; W = 1, 2 and
+    5 (banks of 33 and 160 patterns); an all-tombstone word; PAD rows; row
+    counts off the block size. K7: Vp = 1, 31, 32, 33 and 64; dead slots;
+    parents in the first and the last word; wildcard residuals; PAD rows;
+    one plane, planes sharing one row set, planes with their own rows."""
+    import torch
+    from repro_torch.kernels import lane_refine, ref, triple_match_words_segmented
+
+    pad = np.iinfo(np.int32).max
+    cases = 0
+
+    def rows(shape, vocab):
+        spo = rng.integers(0, vocab, size=(*shape, 3)).astype(np.int32)
+        spo[rng.random(shape) < 0.1] = pad
+        return torch.as_tensor(spo, device=device)
+
+    for n, n_pat, dead, n_seg, bits in [(1, 7, (), 1, 2), (4095, 33, (0,), 2, 5), (4097, 32, (), 2, 2),
+                                        (100_003, 160, (31, 100), 32, 32), (4097, 64, range(32, 64), 32, 30),
+                                        (9, 0, (), 3, 3)]:
+        spo = rows((n,), 5)
+        pats = rng.integers(-1, 5, size=(n_pat, 3)).astype(np.int32)
+        if n_pat:
+            pats[-1] = -1
+        pats[list(dead)] = pad
+        pats = torch.as_tensor(pats.reshape(-1, 3), device=device)
+        seg = rng.integers(-(1 << 31), (1 << 31) - 1, size=n).astype(np.int32)
+        if bits < 32:
+            seg &= (1 << bits) - 1  # bits above n_seg are ignored
+        seg = torch.as_tensor(seg, device=device)
+        got = triple_match_words_segmented.triple_match_words_segmented_cuda(spo, pats, seg, n_seg)
+        want = ref.pattern_bitmask_words_segmented_ref(spo, pats, seg, n_seg)
+        check(torch.equal(got, want), f"triple_match_words_segmented != plain at n={n} P={n_pat} n_seg={n_seg}")
+        cases += 1
+    for n, n_pat, vp, n_virt, planes, shared in [(1, 7, 1, 1, 1, True), (4097, 64, 31, 20, 2, True),
+                                                 (4095, 64, 32, 32, 3, False), (100_003, 160, 33, 9, 2, True),
+                                                 (4097, 32, 64, 40, 32, False), (17, 40, 64, 0, 1, True),
+                                                 (4097, 300, 64, 30, 2, True)]:
+        spo = rows((n,) if shared else (planes, n), 5)
+        pats = rng.integers(-1, 5, size=(n_pat, 3)).astype(np.int32)
+        pats[-1] = -1
+        t_pats = torch.as_tensor(pats, device=device)
+        words = torch.stack([ref.pattern_bitmask_words_ref(spo if shared else spo[f], t_pats) for f in range(planes)])
+        words = torch.where(torch.as_tensor(rng.random((planes, n)) < 0.8, device=device)[..., None], words,
+                            torch.zeros_like(words))  # masked planes, as K6 gives them
+        parents = np.full(vp, -1, np.int32)
+        residual = np.full((vp, 3), pad, np.int32)
+        for i, v in enumerate(rng.choice(vp, size=n_virt, replace=False)):
+            par = (0, n_pat - 1)[i] if i < 2 else int(rng.integers(0, n_pat))  # first and last word
+            parents[v] = par
+            residual[v] = [rng.integers(0, 5) if pats[par, k] == -1 and rng.random() < 0.7 else -1 for k in range(3)]
+        args = (spo, words if planes > 1 else words[0], torch.as_tensor(parents, device=device),
+                torch.as_tensor(residual, device=device))
+        if planes == 1 and not shared:
+            args = (spo[0],) + args[1:]
+        got = lane_refine.lane_refine_cuda(*args)
+        check(torch.equal(got, ref.lane_refine_ref(*args)),
+              f"lane_refine != plain at n={n} Vp={vp} planes={planes} shared={shared}")
         cases += 1
     return cases
 
@@ -707,6 +785,10 @@ def phase_full(tcore, device, seed, n_changesets):
 
 POLICIES = ("eager", "every2", "priority", "stale")
 BROKER_CHANGESETS = 4
+FANOUT_SUBSCRIBERS = 256
+FANOUT_CHANGESETS = 3
+FANOUT_CATEGORIES = 8
+ZIPF_S = 1.3  # the subscriber skew of benchmarks/broker_fanout.py
 
 
 def make_policy(tcore, kind: str):
@@ -747,18 +829,19 @@ def broker_specs(football_caps, location_caps, category_caps, football_init, loc
     return specs
 
 
-def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None):
-    """Subscribe ``specs`` and stream ``changesets`` through one ``Broker``,
-    then flush. The every(2) subscribers subscribe after the first changeset,
-    so that they and the max-staleness ones both have changesets pending at
-    the flush, which then fires two frontiers in one stacked pass.
+def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None, options=None):
+    """Subscribe ``specs`` and stream ``changesets`` through one ``Broker``
+    (constructor ``options``; none: the default configuration), then flush.
+    The every(2) subscribers subscribe after the first changeset, so that
+    they and the max-staleness ones both have changesets pending at the
+    flush, which then fires two frontiers in one pass.
     ``on_fire(call, {name: stores})`` sees every call's fired subscribers.
     With a list ``mem``, each step appends ("call", label, bytes allocated
     before it, peak bytes allocated during it), the peak reset before each
     step."""
     import torch
 
-    broker = tcore.Broker(dictionary, device=device)
+    broker = tcore.Broker(dictionary, device=device, **(options or {}))
     subs = {}
 
     def step(label, fn):
@@ -804,35 +887,45 @@ def plain_ops():
     """Route the broker's bank passes and probes to the plain versions on the card."""
     from repro_torch.kernels import ops, ref
 
-    saved = (ops.pattern_bitmask_words, ops.pattern_lane_bits_batched)
+    names = ("pattern_bitmask_words", "pattern_lane_bits_batched", "pattern_bitmask_words_segmented", "lane_refine")
+    saved = {name: getattr(ops, name) for name in names}
     ops.pattern_bitmask_words = lambda spo, patterns, matcher=None: ref.pattern_bitmask_words_ref(spo, patterns)
     ops.pattern_lane_bits_batched = (
         lambda spo_b, patterns, lanes, active=None, matcher=None: ref.pattern_lane_bits_ref(spo_b, patterns, lanes, active))
+    ops.pattern_bitmask_words_segmented = (
+        lambda spo, patterns, seg, n_seg, matcher=None:
+        ref.pattern_bitmask_words_segmented_ref(spo, patterns, seg, n_seg))
+    ops.lane_refine = ref.lane_refine_ref
     try:
         with plain_probe():
             yield
     finally:
-        ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 class BankCallRecorder:
     """Records the shapes of the broker's bank kernel calls, and keeps the
-    inputs the timing phase measures: the last words pass (the flush's) and
-    the widest lanes pass of a 3-pattern (category) cohort. With a list
-    ``mem``, each lanes pass (one a cohort pass, at its start) appends
-    ("pass", (Ncp, n_i, nt, active), peak bytes allocated so far)."""
+    inputs the timing phase measures: the last words, segmented and refine
+    passes (the flush's) and the widest lanes pass of a 3-pattern (category)
+    cohort. With a list ``mem``, each lanes pass (one a cohort pass, at its
+    start) appends ("pass", (Ncp, n_i, nt, active), peak bytes allocated so
+    far)."""
+
+    NAMES = ("pattern_bitmask_words", "pattern_lane_bits_batched", "pattern_bitmask_words_segmented", "lane_refine")
 
     def __init__(self, mem=None):
-        self.words_shapes, self.lanes_shapes = [], []
-        self.words_args = self.lanes_args = None
+        self.words_shapes, self.lanes_shapes, self.seg_shapes, self.refine_shapes = [], [], [], []
+        self.words_args = self.lanes_args = self.seg_args = self.refine_args = None
         self.mem = mem
 
     def __enter__(self):
         import torch
         from repro_torch.kernels import ops
 
-        self.saved = (ops.pattern_bitmask_words, ops.pattern_lane_bits_batched)
-        words, lanes_fn = self.saved
+        self.saved = {name: getattr(ops, name) for name in self.NAMES}
+        words, lanes_fn = self.saved["pattern_bitmask_words"], self.saved["pattern_lane_bits_batched"]
+        seg_fn, refine_fn = self.saved["pattern_bitmask_words_segmented"], self.saved["lane_refine"]
 
         def rec_words(spo, patterns, matcher=None):
             self.words_shapes.append(tuple(spo.shape))
@@ -849,13 +942,25 @@ class BankCallRecorder:
                 self.lanes_args = (spo_b, patterns, lanes, active)
             return lanes_fn(spo_b, patterns, lanes, active, matcher=matcher)
 
+        def rec_seg(spo, patterns, seg, n_seg, matcher=None):
+            self.seg_shapes.append((spo.shape[0], n_seg, patterns.shape[0]))
+            self.seg_args = (spo, patterns, seg, n_seg)
+            return seg_fn(spo, patterns, seg, n_seg, matcher=matcher)
+
+        def rec_refine(spo, words_in, parents, residual):
+            self.refine_shapes.append((tuple(spo.shape), tuple(words_in.shape), parents.shape[0]))
+            self.refine_args = (spo, words_in, parents, residual)
+            return refine_fn(spo, words_in, parents, residual)
+
         ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = rec_words, rec_lanes
+        ops.pattern_bitmask_words_segmented, ops.lane_refine = rec_seg, rec_refine
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
 
-        ops.pattern_bitmask_words, ops.pattern_lane_bits_batched = self.saved
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
         return False
 
 
@@ -927,15 +1032,17 @@ def broker_capacities(tcore):
 
 
 def phase_broker(tcore, device, seed):
-    """48 subscribers in three shape cohorts over the full-scale dump: through
-    the kernels (the main path, counted), through the plain versions on the
-    same card (bit-identical), and against the port's IrapEngine."""
+    """48 subscribers in three shape cohorts over the full-scale dump, through
+    the default Broker (lattice and delta chain on): through the kernels (the
+    main path, counted), through the plain versions on the same card
+    (bit-identical), against the port's IrapEngine, and through the kernels
+    with the lattice and the chain off (bit-identical, fire by fire)."""
     import torch
     from repro_torch import kernels
 
     t0 = time.perf_counter()
     d = make_dictionary_class()()
-    stream = IdSpaceStream(d, FULL, seed, BROKER_CHANGESETS + 1)
+    stream = IdSpaceStream(d, FULL, seed, BROKER_CHANGESETS + FANOUT_CHANGESETS + 1)
     changesets = [stream.changeset() for _ in range(BROKER_CHANGESETS)]
     specs = broker_specs(*broker_capacities(tcore), stream.football_init, stream.location_init,
                          category_targets(stream))
@@ -956,23 +1063,42 @@ def phase_broker(tcore, device, seed):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = max(m[3] for m in mem if m[0] == "call")
+    bank = broker.bank
     n_words = broker._ensure_bank_dev().shape[0] // 32
+    n_words_r = broker._bank_real_dev.shape[0] // 32
     log(f"broker: kernel run {wall:.2f} s ({len(subs)} subscribers, {BROKER_CHANGESETS} changesets + flush), "
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
     check(len(subs) == 48, "48 subscribers")
-    check(n_words == 2, f"the bank pads to 2 words, not {n_words} ({broker.bank.n_lanes} lanes)")
-    for name in ("triple_match_words", "triple_match_lanes", "merge_probe"):
+    check(broker.subsume_interests and broker.delta_frontiers, "the default Broker has the lattice and the chain")
+    # the device bank is the lattice's extended layout: real rows, then the
+    # virtual rows, each padded to a power of two >= 32
+    check(n_words == bank.n_words and 32 * n_words == bank.n_real_padded + bank.n_virt_padded,
+          f"the device bank has {n_words} words; the bank reports {bank.n_words}")
+    check(32 * n_words_r == bank.n_real_padded and broker._refine_dev is not None
+          and broker._refine_dev[0].shape[0] == bank.n_virt_padded,
+          "the words pass runs over the real rows and refines the virtual ones")
+    check(bank.n_virtual > 0, "the category interests ride virtual lanes")
+    for name in ("triple_match_words", "triple_match_lanes", "merge_probe", "triple_match_words_segmented",
+                 "lane_refine"):
         check(launches[name] > 0, f"{name} never launched on the broker's path: {launches}")
-    log(f"  bank: {broker.bank.n_lanes} lanes ({broker.bank.n_live} live) of "
-        f"{sum(s.plan.n_total for s in subs.values())} patterns, padded to {32 * n_words} rows, W = {n_words}")
-    log(f"  words passes (rows): {[s[0] for s in rec.words_shapes]}; lanes passes (Ncp, n_i, nt, active): "
-        f"{sorted(set(rec.lanes_shapes))}")
+    log(f"  bank: {bank.n_real} real lanes ({bank.bank.n_lanes} allocated) padded to {bank.n_real_padded} rows "
+        f"(W {n_words_r}), {bank.n_virtual} virtual lanes padded to {bank.n_virt_padded} rows (W "
+        f"{n_words - n_words_r}), of {sum(s.plan.n_total for s in subs.values())} patterns; the device bank "
+        f"{32 * n_words} rows, W = {n_words}")
+    log(f"  words passes (rows): {[s[0] for s in rec.words_shapes]}; segmented passes (rows, n_seg, bank rows): "
+        f"{rec.seg_shapes}; refine passes (rows, words, Vp): {rec.refine_shapes}; lanes passes "
+        f"(Ncp, n_i, nt, active): {sorted(set(rec.lanes_shapes))}")
     for i, st in enumerate(broker.stats):
         label = f"changeset {i}" if i < BROKER_CHANGESETS else "flush"
         per_pass = st.elapsed_s / st.n_cohort_passes * 1e3 if st.n_cohort_passes else 0.0
         log(f"  {label}: {st.elapsed_s * 1e3:.1f} ms, {st.n_evaluated} fired, {st.n_cohort_passes} cohort passes "
             f"({per_pass:.1f} ms a pass), builds {st.rejit_s * 1e3:.1f} ms, rows matched {st.rows_matched:,} "
-            f"(largest frontier {st.rows_distinct:,}), r {st.interesting_removed:,}, a {st.interesting_added:,}")
+            f"(distinct {st.rows_distinct:,}), slots {st.distinct_interests} for {st.fanout_copies} deliveries, "
+            f"r {st.interesting_removed:,}, a {st.interesting_added:,}")
+    flush = broker.stats[-1]
+    check(flush.n_evaluated == 24 and flush.rows_matched == flush.rows_distinct and rec.seg_shapes
+          and rec.seg_shapes[-1][1] == 2,
+          "the flush fired two frontiers through the delta chain (rows matched == rows distinct)")
     doublings = {}
     for name, sub in subs.items():
         group = name.split("/")[0].rstrip("0123456789") + "/" + name.split("/")[1]
@@ -1024,6 +1150,26 @@ def phase_broker(tcore, device, seed):
                                      for a, b in zip(broker.stats, p_broker.stats)))
     del p_broker
 
+    # the same subscribers through the kernels with the lattice and the delta
+    # chain off: the stacked path, fire by fire equal to the default run
+    kernels.reset_launch_counts()
+    compared[0] = 0
+    t0 = time.perf_counter()
+    off_broker, _ = drive_broker(tcore, d, specs, changesets, device, compare,
+                                 options=dict(subsume_interests=False, delta_frontiers=False))
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t0
+    off_launches = kernels.launch_counts()
+    check(off_launches["triple_match_words_segmented"] == 0 and off_launches["lane_refine"] == 0
+          and off_launches["triple_match_words"] > 0, f"the lattice-off run took the stacked path: {off_launches}")
+    off_flush = off_broker.stats[-1]
+    log(f"broker: lattice and chain off {off_wall:.2f} s, launches {off_launches}; {compared[0]} stores "
+        f"bit-identical to the default run; flush rows matched {off_flush.rows_matched:,} (distinct "
+        f"{off_flush.rows_distinct:,}) vs {flush.rows_matched:,}; device bank {off_broker._ensure_bank_dev().shape[0]} "
+        "rows; ms per call default/off: " + ", ".join(
+            f"{a.elapsed_s * 1e3:.1f}/{b.elapsed_s * 1e3:.1f}" for a, b in zip(broker.stats, off_broker.stats)))
+    del off_broker
+
     # every fire against the port's single-interest engine
     t0 = time.perf_counter()
     n_checked = engine_check(tcore, d, specs, changesets, fires, device)
@@ -1031,6 +1177,99 @@ def phase_broker(tcore, device, seed):
         f"({time.perf_counter() - t0:.1f} s)")
     del fires
     return broker, stream, rec, launches
+
+
+def four_ways(bgp, ogp):
+    """One interest written four ways: as is, with its variables renamed,
+    with its BGP patterns reordered, and both."""
+
+    def rename(pats):
+        return [tuple(t + "_" if t.startswith("?") else t for t in p) for p in pats]
+
+    return [(bgp, ogp), (rename(bgp), rename(ogp)), (bgp[::-1], ogp), (rename(bgp)[::-1], rename(ogp))]
+
+
+def phase_fanout(tcore, device, seed, stream, broker_stats):
+    """256 eager subscribers over the broker phase's dump, drawn from 10
+    interests (Football, Location, 8 categories) each written four ways:
+    round robin over the 40 expressions first, then Zipf (s = 1.3) as
+    ``benchmarks/broker_fanout.py`` draws subscribers. All subscribe before
+    the first changeset with equal capacities and their interest's τ0, so
+    canonical duplicates join one lane group; every fire evaluates 10 slots
+    for 256 deliveries, and every member equals its group and IrapEngine on
+    its own expression."""
+    import torch
+
+    football_caps, location_caps, category_caps = broker_capacities(tcore)
+    interests = [("football", FOOTBALL, football_caps, stream.football_init),
+                 ("location", LOCATION, location_caps, stream.location_init)]
+    cat_inits = category_targets(stream)
+    interests += [(f"category{k}", category_interest(k), category_caps, cat_inits[k])
+                  for k in range(FANOUT_CATEGORIES)]
+    pool = [(i, w) for w in range(4) for i in range(len(interests))]  # as-is writings first
+    rng = np.random.default_rng(seed + 7)
+    draw = list(range(len(pool))) + list((rng.zipf(ZIPF_S, FANOUT_SUBSCRIBERS - len(pool)) - 1) % len(pool))
+    changesets = [stream.changeset() for _ in range(FANOUT_CHANGESETS)]
+
+    def expr_of(i, w):
+        name, (bgp, ogp), _, _ = interests[i]
+        return tcore.InterestExpr.parse("synthetic://dbpedia-live", f"local://fanout/{name}", *four_ways(bgp, ogp)[w])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    broker = tcore.Broker(stream.d, device=device)
+    subs = []
+    for e in draw:
+        i, w = pool[e]
+        _, _, caps, init = interests[i]
+        subs.append((e, broker.subscribe(expr_of(i, w), caps, initial_target=init)))
+    sub_s = time.perf_counter() - t0
+    groups = {}
+    for e, sub in subs:
+        groups.setdefault(id(sub.share_tag), set()).add(pool[e][0])
+    check(len(groups) == len(interests) and all(len(g) == 1 for g in groups.values()),
+          f"the {len(subs)} subscribers form {len(groups)} lane groups, one an interest")
+    per_interest = [sum(1 for e, _ in subs if pool[e][0] == i) for i in range(len(interests))]
+    log(f"fan-out: {len(subs)} subscribers of {len(interests)} interests x 4 writings ({len(set(draw))} "
+        f"expressions drawn; per interest {per_interest}) subscribed in {sub_s:.1f} s, {len(groups)} lane groups")
+
+    outs = []
+    for d_np, a_np in changesets:
+        outs.append(broker.process_changeset(d_np, a_np))
+        st = broker.stats[-1]
+        check(st.distinct_interests == len(interests) and st.fanout_copies == FANOUT_SUBSCRIBERS,
+              f"a fan-out fire evaluated {st.distinct_interests} slots for {st.fanout_copies} deliveries")
+    torch.cuda.synchronize()
+    eager = [st.elapsed_s * 1e3 for st in broker_stats[:BROKER_CHANGESETS]]
+    log("fan-out: ms per fire " + ", ".join(f"{st.elapsed_s * 1e3:.1f}" for st in broker.stats)
+        + f" ({len(interests)} slots, {FANOUT_SUBSCRIBERS} deliveries, {broker.stats[-1].n_cohort_passes} cohort "
+        f"passes a fire); the 48-subscriber broker's changesets: " + ", ".join(f"{ms:.1f}" for ms in eager))
+
+    # every member against its group's root, then IrapEngine on its own expression
+    roots = {}
+    for k, (e, sub) in enumerate(subs):
+        roots.setdefault(id(sub.share_tag), k)
+    engines = {}
+    t0 = time.perf_counter()
+    for e in sorted(set(draw)):
+        i, w = pool[e]
+        _, _, caps, init = interests[i]
+        eng = tcore.IrapEngine(stream.d, device=device).register_interest(expr_of(i, w), caps, initial_target=init)
+        engines[e] = [eng.apply(d_np, a_np) for d_np, a_np in changesets] + [(eng.tau, eng.rho)]
+    checked = 0
+    for c, call in enumerate(outs):
+        for k, (e, sub) in enumerate(subs):
+            got, root = call[k], call[roots[id(sub.share_tag)]]
+            want = engines[e][c]
+            for f in OUT_FIELDS:
+                check(same_rows(getattr(got, f), getattr(root, f)), f"fan-out member {k} call {c}: {f} != its group's")
+                check(same_rows(getattr(got, f), getattr(want, f)), f"fan-out member {k} call {c}: {f} != IrapEngine")
+            checked += 1
+    for k, (e, sub) in enumerate(subs):
+        tau, rho = engines[e][-1]
+        check(same_rows(sub.tau, tau) and same_rows(sub.rho, rho), f"fan-out member {k}: τ/ρ != IrapEngine")
+    log(f"fan-out: {checked} member fires equal their group and IrapEngine on {len(engines)} original expressions "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def time_cuda(fn, iters: int, flush) -> float:
@@ -1125,7 +1364,14 @@ def phase_timing(tcore, device, subs, changesets, launches):
         **k2_rows["member"],
         "library_ms": None,  # no single PyTorch call searches rows lexicographically
     }
-    return [k1, k2]
+    # K3 (the windowed probe) is the same CUDA kernel and launch counter; its
+    # row reads the prefix_range shape
+    k3 = {
+        "name": "merge_probe_windowed", "route": "cuda", "source": "src/repro_torch/csrc/merge_probe.cu",
+        "replaces": "src/repro/kernels/merge_join.py:131", "launches": launches["merge_probe"],
+        **k2_rows["prefix"], "library_ms": None,
+    }
+    return [k1, k2, k3]
 
 
 def bank_timing(rec, launches, flush):
@@ -1186,6 +1432,74 @@ def bank_timing(rec, launches, flush):
     return [k4, k5]
 
 
+def chain_timing(rec, launches, flush):
+    """K6 at the flush's union shape and K7 at the flush's refine shape (its
+    frontier planes over the union rows), as the broker's main path gave them."""
+    import torch
+    from repro_torch.core.triples import PAD
+    from repro_torch.kernels import lane_refine, ref, triple_match_words_segmented
+
+    spo, bank, seg, n_seg = rec.seg_args
+    n, n_pat = spo.shape[0], bank.shape[0]
+    w = max(1, -(-n_pat // 32))
+    # the work this run's data needs: valid rows of some segment against
+    # live bank rows (PAD rows, rows of no segment and all-PAD bank rows
+    # give zero words)
+    member = (seg & ((1 << n_seg) - 1 if n_seg < 32 else -1)) != 0
+    n_valid = int(((spo[:, 0] != PAD) & member).sum())
+    n_live = int((bank != PAD).any(dim=1).sum())
+    got = triple_match_words_segmented.triple_match_words_segmented_cuda(spo, bank, seg, n_seg)
+    err = int((got.long() - ref.pattern_bitmask_words_segmented_ref(spo, bank, seg, n_seg).long()).abs().max())
+    check(err == 0, "triple_match_words_segmented at the main-path shape")
+    k6 = {
+        "name": "triple_match_words_segmented", "route": "cuda",
+        "source": "src/repro_torch/csrc/triple_match_words_segmented.cu",
+        "replaces": "src/repro/kernels/triple_match.py:222", "launches": launches["triple_match_words_segmented"],
+        "max_abs_err": err,
+        "ms": time_cuda(lambda: triple_match_words_segmented.triple_match_words_segmented_cuda(spo, bank, seg, n_seg),
+                        50, flush),
+        "plain_ms": time_cuda(lambda: ref.pattern_bitmask_words_segmented_ref(spo, bank, seg, n_seg), 10, flush),
+    }
+    # each row and its seg word read once (16 B), every plane's words
+    # written once; per valid member row and live bank row ~7 operations
+    k6["bound_ms"], k6["bound_by"] = bound(n * 16 + n_seg * n * w * 4 + n_pat * 12, n_valid * n_live * 7)
+    k6["library_ms"] = None  # no single PyTorch call computes segment-masked bank bitsets
+    log(f"timing: triple_match_words_segmented N={n:,} ({n_valid:,} valid members) n_seg={n_seg} W={w} "
+        f"({n_live} live bank rows): {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
+        f"bound {k6['bound_ms']:.4f} ms ({k6['bound_by']})")
+
+    spo, words, parents, residual = rec.refine_args
+    planes = words.shape[0] if words.ndim == 3 else 1
+    n, w = words.shape[-2], words.shape[-1]
+    vp = parents.shape[0]
+    wv = max(1, -(-vp // 32))
+    shared = spo.ndim == 2
+    n_valid = int((spo[..., 0] != PAD).sum()) * (planes if shared else 1)
+    n_live = int((parents >= 0).sum())
+    got = lane_refine.lane_refine_cuda(spo, words, parents, residual)
+    err = int((got.long() - ref.lane_refine_ref(spo, words, parents, residual).long()).abs().max())
+    check(err == 0, "lane_refine at the main-path shape")
+    k7 = {
+        "name": "lane_refine", "route": "cuda", "source": "src/repro_torch/csrc/lane_refine.cu",
+        "replaces": "src/repro/kernels/triple_match.py:322", "launches": launches["lane_refine"],
+        "max_abs_err": err,
+        "ms": time_cuda(lambda: lane_refine.lane_refine_cuda(spo, words, parents, residual), 50, flush),
+        "plain_ms": time_cuda(lambda: ref.lane_refine_ref(spo, words, parents, residual), 10, flush),
+    }
+    # the rows read once (once for all planes when they share them), each
+    # plane's real words read and virtual words written once; per valid row
+    # of a plane and live slot ~10 operations (word select, shift, three
+    # compares, the ands)
+    spo_bytes = n * 12 * (1 if shared else planes)
+    k7["bound_ms"], k7["bound_by"] = bound(spo_bytes + planes * n * (4 * w + 4 * wv) + vp * 16, n_valid * n_live * 10)
+    k7["library_ms"] = None  # no single PyTorch call refines lane bits by residual compares
+    log(f"timing: lane_refine F={planes} N={n:,} ({n_valid:,} valid plane rows, rows shared {shared}) W={w} "
+        f"Vp={vp} ({n_live} live): {k7['ms']:.4f} ms, plain {k7['plain_ms']:.4f} ms, "
+        f"bound {k7['bound_ms']:.4f} ms ({k7['bound_by']})")
+    torch.cuda.synchronize()
+    return [k6, k7]
+
+
 def profile_call(label: str, fn) -> None:
     """Run ``fn`` once under torch.profiler: the device's busy share of the
     wall time, and device time by kernel group."""
@@ -1209,7 +1523,9 @@ def profile_call(label: str, fn) -> None:
     groups = {}
     for key, _, ms in rows:
         k = key.lower()
-        group = ("triple_match_words kernel" if "triple_match_words" in k else
+        group = ("triple_match_words_segmented kernel" if "segmented" in k else
+                 "lane_refine kernel" if "lane_refine" in k else
+                 "triple_match_words kernel" if "triple_match_words" in k else
                  "triple_match_lanes kernel" if "triple_match_lanes" in k else
                  "triple_match kernel" if "triple_match" in k else
                  "merge_probe kernel" if "merge_probe" in k else
@@ -1232,7 +1548,7 @@ def phase_profile(subs, stream, broker, broker_stream):
         profile_call(name, lambda: sub.apply(d_np, a_np))
     d_np, a_np = broker_stream.changeset()
     fired = []
-    profile_call("broker fire", lambda: fired.append(broker.process_changeset(d_np, a_np)))
+    profile_call("broker fire (default configuration)", lambda: fired.append(broker.process_changeset(d_np, a_np)))
     st = broker.stats[-1]
     log(f"  broker fire: {st.n_evaluated} subscribers fired, {st.n_cohort_passes} cohort passes")
 
@@ -1299,9 +1615,11 @@ def main(argv=None) -> int:
     phase_small(tcore, device, args.seed)
     subs, stream, changesets, launches = phase_full(tcore, device, args.seed, args.changesets)
     broker, broker_stream, rec, broker_launches = phase_broker(tcore, device, args.seed)
+    phase_fanout(tcore, device, args.seed, broker_stream, broker.stats)
     table = phase_timing(tcore, device, subs, changesets, launches)
     scratch = torch.empty(1 << 28, dtype=torch.uint8, device=device)  # 256 MiB > 50 MB L2
     table += bank_timing(rec, broker_launches, scratch.zero_)
+    table += chain_timing(rec, broker_launches, scratch.zero_)
     del scratch, rec
     phase_profile(subs, stream, broker, broker_stream)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]

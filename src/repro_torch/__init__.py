@@ -2,11 +2,12 @@
 
 It holds the paper's single-interest pipeline (dictionary ids, triple-set
 algebra, interest compilation, side evaluation, ``IrapEngine``) and the
-multi-subscriber ``Broker`` with its pattern bank, push policies and
-deferred, stacked flush (``repro_torch.core``), on hand-written Hopper
-kernels for the pattern bitset, the lexicographic probe, the bank words and
-the fused lane routing (``repro_torch.kernels``). Entry points run on the
-CUDA card unless the caller passes ``device="cpu"``.
+multi-subscriber ``Broker`` with its pattern bank, push policies, deferred
+flush with delta frontier chains and the subsumption lattice
+(``repro_torch.core``), on hand-written Hopper kernels for the pattern
+bitset, the lexicographic probe, the bank words, the fused lane routing,
+the segmented bank words and the lane refinement (``repro_torch.kernels``).
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import core, kernels
 from .core import (

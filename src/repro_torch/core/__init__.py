@@ -1,13 +1,16 @@
 """iRap core on PyTorch: the single-interest pipeline (Defs 6, 11-18) and the
-multi-subscriber broker (stacked deferred flush, no subsumption lattice).
+multi-subscriber broker (deferred flush with delta frontier chains, the
+subsumption lattice).
 
 Public API:
   Dictionary, TripleStore + set algebra      (repro_torch.core.{dictionary,triples})
   InterestExpr / compile_interest            (repro_torch.core.interest)
   IncrementalPatternBank / build_pattern_bank
+  canonicalize_expr / SubsumptionBank
   make_side_evaluator / TripleIndex          (repro_torch.core.evaluation)
   make_interest_step / IrapEngine            (repro_torch.core.propagation)
   compose_changesets / ChangesetBatch
+  FrontierChain / build_frontier_chain
   Broker / PushPolicy / make_broker_step     (repro_torch.core.broker)
   load_dictionary / carry_subscription /     (repro_torch.core.state)
   carry_broker
@@ -34,8 +37,10 @@ from .interest import (
     InterestCompileError,
     InterestExpr,
     PatternBank,
+    SubsumptionBank,
     TriplePattern,
     build_pattern_bank,
+    canonicalize_expr,
     compile_interest,
     next_pow2,
 )
@@ -44,9 +49,11 @@ from .propagation import (
     ChangesetBatch,
     ChangesetStats,
     EvalOutputs,
+    FrontierChain,
     InterestSubscription,
     IrapEngine,
     StepCapacities,
+    build_frontier_chain,
     combine_side_results,
     compose_changesets,
     make_interest_step,

@@ -4,13 +4,28 @@ The paper's deployment (§1, §3) is many long-lived applications, each with
 an interest ``i_g = <τ, b, op>`` (Definition 7) over one evolving source.
 The broker evaluates all of them per changeset through shared passes:
 
-1. **Incremental pattern bank.** Every subscription's patterns dedup into
-   one :class:`~repro_torch.core.interest.IncrementalPatternBank`: lanes are
-   never renumbered on subscribe, tombstoned on unsubscribe (and reused),
-   and compacted only when that shrinks the padded bank. The device bank is
-   padded to a power of two (>= 32) rows, so W = rows / 32 bitset words.
+1. **Pattern bank.** Every subscription's patterns dedup into one bank:
+   lanes are never renumbered on subscribe, tombstoned on unsubscribe (and
+   reused), and compacted only when that shrinks the padded bank. The
+   device bank is padded to a power of two (>= 32) rows, so W = rows / 32
+   bitset words.
 
-2. **Cohorts.** Subscriptions with the same static plan shape, capacities and
+2. **Subsumption lattice** (the default; ``subsume_interests=False`` gives
+   one cohort slot per subscriber and a plain
+   :class:`~repro_torch.core.interest.IncrementalPatternBank`). Each
+   expression is canonicalized
+   (:func:`~repro_torch.core.interest.canonicalize_expr`), and a new
+   subscription whose canonical interest, capacities, policy, frontier and
+   τ/ρ equal an existing lane group's joins it: the group takes one cohort
+   slot per fire and its result fans out to every member at commit
+   (``BrokerStats.distinct_interests`` vs ``fanout_copies``). A pattern
+   strictly contained by a real bank row rides a virtual lane of the
+   :class:`~repro_torch.core.interest.SubsumptionBank`: the deleted-side
+   words pass runs over the real rows only, and the virtual words are the
+   parent lane's bits AND a residual compare (:func:`kops.lane_refine`, the
+   K7 kernel on the card), placed after the real words.
+
+3. **Cohorts.** Subscriptions with the same static plan shape, capacities and
    id capacity form a cohort, padded to a power-of-two member count with
    inactive members. One cohort pass launches each bank kernel once over
    all its members and frontier slots:
@@ -25,36 +40,45 @@ The broker evaluates all of them per changeset through shared passes:
      stacked ``I_k = A_f(k) ∪ ρ_k`` rows ``[Ncp, n_i, 3]`` (Definition 14).
 
    ``build_index(τ)`` runs once per unique target replica (subscribers of
-   one replica share it: ``subscribe(..., share_target=True)``). The side
-   evaluation (:func:`~repro_torch.core.evaluation.make_side_evaluator` in
+   one replica share it). The side evaluation
+   (:func:`~repro_torch.core.evaluation.make_side_evaluator` in
    dynamic-patterns mode, with the routed bits) and
    :func:`~repro_torch.core.propagation.combine_side_results` run per
    active member in a Python loop; padding members compute nothing.
 
-   Built cohort steps sit in an LRU cache under the reference's keys
-   (``("cohort", plan shape, caps, id capacity, Ncp, Nu, Fp, W, matcher,
-   device)``), and the membership-static device inputs (pattern values,
-   lane maps, member mask, frontier and target maps) in a second one, so a
-   subscription change rebuilds at most its own cohort; ``rejit_count``,
+   Built cohort steps sit in an LRU cache under the reference's keys, and
+   the membership-static device inputs (pattern values, lane maps, member
+   mask, frontier and target maps) in a second one, so a subscription
+   change rebuilds at most its own cohort; ``rejit_count``,
    ``cohort_compiles`` and ``words_compiles`` count the builds.
 
-3. **Push scheduler.** Each subscription has a :class:`PushPolicy`
-   (every k changesets, priority lane, or maximum staleness). Pending
-   changesets compose per consumption frontier into a device-resident
-   :class:`~repro_torch.core.propagation.ChangesetBatch` (Definition 6), a
-   subscriber's cohort runs only when its policy fires, and :meth:`Broker.flush`
-   drains the rest. Frontiers that fire together stack into one pass: the
-   frontier is one more padded axis folded into each cohort's member axis
-   (``f_map``). Capacities grow on overflow: the whole fire re-runs with
-   the overflowing subscribers' capacities doubled, and past
-   ``max_fire_retries`` those subscribers go through the per-interest step.
+4. **Push scheduler and delta frontier chains.** Each subscription has a
+   :class:`PushPolicy` (every k changesets, priority lane, or maximum
+   staleness). Pending changesets compose per consumption frontier into a
+   device-resident :class:`~repro_torch.core.propagation.ChangesetBatch`
+   (Definition 6), a subscriber's cohort runs only when its policy fires,
+   and :meth:`Broker.flush` drains the rest. Frontiers that fire together
+   run in one pass: the frontier is one more padded axis folded into each
+   cohort's member axis (``f_map``). Their D sides overlap (each composes a
+   suffix of one stream), so by default (``delta_frontiers=True``) the
+   pass is delta-encoded: a
+   :class:`~repro_torch.core.propagation.FrontierChain` holds the distinct
+   D rows and each frontier's membership bits, one segmented words pass
+   (:func:`kops.pattern_bitmask_words_segmented`, the K6 kernel) matches
+   each distinct row once, and every cohort evaluates the one union store,
+   homed at the union's own power-of-two row count, with each member's
+   frontier words selecting its rows. Where the chain cannot prove that it
+   holds every frontier's rows, the stacked pass runs instead, as it does
+   always with ``delta_frontiers=False``. Capacities grow on overflow: the
+   whole fire re-runs with the overflowing subscribers' capacities doubled,
+   and past ``max_fire_retries`` those subscribers go through the
+   per-interest step.
 
 Every output equals what the per-interest engine gives for the same composed
-changeset, and every store and statistic equals the reference's
-``Broker(d, subsume_interests=False, delta_frontiers=False)``: that is the
-configuration this module implements. The reference's subsumption lattice,
-delta frontier chains, mesh placement and sharding, journal and delivery
-channel are not here.
+changeset, and every store and statistic equals the reference ``Broker``'s
+under the same ``subsume_interests`` and ``delta_frontiers``. The
+reference's mesh placement and sharding, journal and delivery channel are
+not here.
 
 One unified sequence clock (``_seq``) orders the broker's events: a
 subscribe, an unsubscribe, an ingested changeset and a committed fire each
@@ -84,6 +108,8 @@ from .interest import (
     IncrementalPatternBank,
     InterestExpr,
     PatternBank,
+    SubsumptionBank,
+    canonicalize_expr,
     compile_interest,
     next_pow2,
 )
@@ -91,6 +117,7 @@ from .propagation import (
     ChangesetBatch,
     EvalOutputs,
     StepCapacities,
+    build_frontier_chain,
     combine_side_results,
     make_interest_step,
     resolve_device,
@@ -236,6 +263,7 @@ def make_cohort_step(
     caps: StepCapacities,
     id_capacity: int,
     matcher: Optional[Callable] = None,
+    delta: bool = False,
 ) -> Callable:
     """The step for ONE shape-homogeneous cohort, spanning every frontier
     that fires in the same call.
@@ -259,6 +287,14 @@ def make_cohort_step(
     ``I_k = A_f(k) ∪ ρ_k``; the deleted side routes each member's frontier
     words. ``build_index`` runs once per unique target that an active
     member reads.
+
+    ``delta=True`` is the delta-chain step: ``d_sets`` is ONE store, the
+    distinct D rows of every fired frontier
+    (:class:`~repro_torch.core.propagation.FrontierChain`), shared by every
+    member, and ``d_words[f]`` are frontier ``f``'s membership-masked words
+    over those rows. A row outside a member's frontier has zero bits, so it
+    yields no candidates and no outputs, and the outputs equal the stacked
+    step's.
     """
     eval_kw = dict(
         id_capacity=id_capacity,
@@ -272,7 +308,7 @@ def make_cohort_step(
     eval_a = make_side_evaluator(plan, out_capacity=caps.n_i, **eval_kw)
 
     def step(
-        d_sets: Tuple[TripleStore, ...],
+        d_sets,
         d_words: Tuple[torch.Tensor, ...],
         a_sets: Tuple[TripleStore, ...],
         bank_dev: torch.Tensor,
@@ -301,7 +337,8 @@ def make_cohort_step(
             if t not in tgts:  # one build_index(τ) per unique replica
                 tgts[t] = build_index(uniq_taus[t])
             i_set, ovf_i = i_sets[pos]
-            d_res = eval_d(d_sets[st.f_host[pos]], tgts[t], d_bits[pos], st.pats[pos])
+            d_set = d_sets if delta else d_sets[st.f_host[pos]]
+            d_res = eval_d(d_set, tgts[t], d_bits[pos], st.pats[pos])
             a_res = eval_a(i_set, tgts[t], a_bits[pos], st.pats[pos])
             tau1s[pos], rho1s[pos], outs[pos] = combine_side_results(
                 d_res, a_res, uniq_taus[t], rhos[pos], caps, ovf_i
@@ -460,6 +497,9 @@ class BrokerSubscription:
         # share a build_index(τ) exactly when their replica state is equal
         self.share_tag: object = self
         self.epoch: int = 0
+        # lane-group signature (canonical key, caps, policy): the broker's
+        # index of exact canonical duplicates; None with the lattice off
+        self.canon_sig: Optional[tuple] = None
 
     def recompile(self, caps: StepCapacities | None = None) -> None:
         """Refresh plan and capacities after dictionary or capacity growth."""
@@ -505,12 +545,14 @@ class BrokerStats:
     batch_grows: int = 0  # cumulative ChangesetBatch pow2 doublings
     batch_shrinks: int = 0  # cumulative ChangesetBatch decay re-homes
     # D-side bank-match volume this call: rows run through the words pass
-    # (one stacked pass re-matches rows shared by frontiers) vs the largest
-    # frontier's rows; counts repeat on overflow re-runs
+    # vs the distinct rows across the fired frontiers (the stacked pass
+    # re-matches rows shared by frontiers, the delta chain matches each
+    # once); counts repeat on overflow re-runs
     rows_matched: int = 0
     rows_distinct: int = 0
-    # cohort slots evaluated vs subscriber deliveries (equal here: one slot
-    # per subscriber); counts repeat on overflow re-runs
+    # cohort slots evaluated vs subscriber deliveries fanned out from them
+    # (equal with the lattice off: one slot per subscriber); counts repeat
+    # on overflow re-runs
     distinct_interests: int = 0
     fanout_copies: int = 0
     seq: int = 0  # unified sequence clock after this call
@@ -525,7 +567,11 @@ class _FrontierInput:
 
     ``d_store`` / ``a_store`` give the composed (D, A) at a requested
     capacity; ``d_rows`` / ``a_rows`` bound their valid rows for the
-    capacity guards; ``since`` is the frontier's first changeset id.
+    capacity guards; ``since`` is the frontier's first changeset id (the
+    delta chain's union is the oldest fired frontier's D); ``d_native``
+    gives the composed D at the batch's own capacity for the chain's
+    membership probes (None on the host round-trip path, which never
+    chains).
     """
 
     idxs: List[int]
@@ -534,6 +580,7 @@ class _FrontierInput:
     d_store: Callable[[int], TripleStore]
     a_store: Callable[[int], TripleStore]
     since: int = 0
+    d_native: Optional[Callable[[], TripleStore]] = None
 
 
 def _stores_equal(a: TripleStore, b: TripleStore) -> bool:
@@ -572,7 +619,11 @@ class Broker:
     whose :class:`PushPolicy` fires, through cached cohort steps.
 
     ``device`` defaults to the CUDA card; ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels on the CPU. ``matcher`` (the
+    PyTorch versions of the kernels on the CPU. ``subsume_interests=False``
+    turns the subsumption lattice off (raw expressions, ``share_target``
+    only, one cohort slot per subscriber, no virtual lanes), and
+    ``delta_frontiers=False`` the delta frontier chain (one stacked words
+    pass over every fired frontier's D). ``matcher`` (the
     ``ops.pattern_bitmask`` signature) is a testing hook that produces the
     bank words one 32-lane word at a time. ``cache_executables=False``
     drops every built step at each membership change.
@@ -588,6 +639,8 @@ class Broker:
         matcher: Optional[Callable] = None,
         cache_executables: bool = True,
         deferred_device_resident: bool = True,
+        delta_frontiers: bool = True,
+        subsume_interests: bool = True,
         decay_patience: int = 2,
         max_fire_retries: int = 8,
         device=None,
@@ -598,9 +651,13 @@ class Broker:
         self.matcher = matcher
         self.subs: List[BrokerSubscription] = []
         self.stats: List[BrokerStats] = []
-        self.bank = IncrementalPatternBank()
+        self.subsume_interests = subsume_interests
+        self.bank = self._new_bank()
+        # lane-group signature -> the group's root (auto-join index)
+        self._share_index: Dict[tuple, BrokerSubscription] = {}
         self.cache_executables = cache_executables
         self.deferred_device_resident = deferred_device_resident
+        self.delta_frontiers = delta_frontiers
         self.decay_patience = decay_patience
         self.max_fire_retries = max_fire_retries
         self.batch_grows = 0  # ChangesetBatch pow2 doublings (cumulative)
@@ -629,6 +686,11 @@ class Broker:
         self._epoch_next = 0
         self.epoch_intern_max = 4096
         self._bank_dev: torch.Tensor | None = None
+        # the real rows only, padded, and the (parents, residual) refine
+        # operands, for the deleted-side words pass (the whole bank and None
+        # without virtual lanes); refreshed with _bank_dev
+        self._bank_real_dev: torch.Tensor | None = None
+        self._refine_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._bank_version = -1
         self._batches: Dict[int, ChangesetBatch] = {}
         # the unified sequence clock: subscribe, unsubscribe, ingest and a
@@ -644,6 +706,9 @@ class Broker:
 
     # -- interest manager ---------------------------------------------------
 
+    def _new_bank(self):
+        return SubsumptionBank() if self.subsume_interests else IncrementalPatternBank()
+
     def subscribe(
         self,
         expr: InterestExpr,
@@ -654,11 +719,20 @@ class Broker:
     ) -> BrokerSubscription:
         """Register an interest; only its own cohort will be rebuilt.
 
+        With the lattice on, the expression is replaced by its canonical
+        form before it compiles, and the subscription joins an existing lane
+        group when its canonical interest, capacities, policy, frontier and
+        τ/ρ are all equal to the group root's (the join skips only
+        evaluations that would give equal results).
+
         ``share_target=True`` adopts an existing identical subscription's
         current τ/ρ state and frontier (the many-readers-of-one-replica
         case); without a compatible one the subscription is independent.
         """
         self._seq += 1
+        canon_key = None
+        if self.subsume_interests:
+            expr, canon_key = canonicalize_expr(expr)
         sub = BrokerSubscription(expr, self.dictionary, caps, self.device, policy=policy)
         sub.since = self._seq + 1
         root = self._find_share_root(sub) if share_target else None
@@ -668,12 +742,42 @@ class Broker:
             sub.since, sub.last_push_t = root.since, root.last_push_t
         elif initial_target is not None and initial_target.size:
             sub.init_target(initial_target)
+        if canon_key is not None:
+            # read after init_target, which may have doubled the capacities
+            sub.canon_sig = (canon_key, sub.caps, sub.policy)
+            if root is None:
+                auto = self._auto_join_root(sub)
+                if auto is not None:
+                    sub.tau, sub.rho = auto.tau, auto.rho
+                    sub.share_tag, sub.epoch = auto.share_tag, auto.epoch
+            self._share_index.setdefault(sub.canon_sig, sub)
         sub.lanes = self.bank.add_plan(sub.plan)
         self.subs.append(sub)
         self._lanes_raw += sub.plan.n_total
         if not self.cache_executables:
             self._exec_cache.clear()
         return sub
+
+    def _auto_join_root(self, sub: BrokerSubscription) -> BrokerSubscription | None:
+        """The lane-group root ``sub`` may join: same signature (canonical
+        interest, capacities, policy), frontier and τ/ρ; anything less keeps
+        it independent, a missed collapse and never a wrong one."""
+        root = self._share_index.get(sub.canon_sig)
+        if (
+            root is None
+            or root.caps != sub.caps  # the root may have outgrown the signature
+            or not self._frontier_equal(root.since, sub.since)
+            or not _stores_equal(root.tau, sub.tau)
+            or not _stores_equal(root.rho, sub.rho)
+        ):
+            return None
+        return root
+
+    def _frontier_equal(self, a: int, b: int) -> bool:
+        """Do two consumption frontiers name the same pending suffix? Equal
+        ones do, and so do two past the last ingested changeset: both
+        suffixes are empty (the next ingest re-keys them onto its id)."""
+        return a == b or min(a, b) > self._last_cid
 
     def _find_share_root(self, sub: BrokerSubscription) -> BrokerSubscription | None:
         for s in self.subs:
@@ -693,9 +797,17 @@ class Broker:
         self.bank.remove_plan(sub.lanes)
         sub.lanes = ()
         self._lanes_raw -= sub.plan.n_total
+        sig = sub.canon_sig
+        if sig is not None and self._share_index.get(sig) is sub:
+            # another member of the lane group, if any, becomes the root
+            repl = next((s for s in self.subs if s.canon_sig == sig), None)
+            if repl is None:
+                del self._share_index[sig]
+            else:
+                self._share_index[sig] = repl
         if not self.subs:
             # no lane map references the bank: start the next one fresh
-            self.bank = IncrementalPatternBank()
+            self.bank = self._new_bank()
             self._bank_version = -1
             self._batches.clear()
         else:
@@ -712,6 +824,14 @@ class Broker:
     def _ensure_bank_dev(self) -> torch.Tensor:
         if self._bank_dev is None or self._bank_version != self.bank.version:
             self._bank_dev = torch.as_tensor(self.bank.patterns_padded(), device=self.device)
+            self._bank_real_dev = self._bank_dev
+            self._refine_dev = None
+            if isinstance(self.bank, SubsumptionBank):
+                ra = self.bank.refine_arrays()
+                if ra is not None:
+                    self._bank_real_dev = torch.as_tensor(self.bank.real_padded(), device=self.device)
+                    self._refine_dev = (torch.as_tensor(ra[0], device=self.device),
+                                        torch.as_tensor(ra[1], device=self.device))
             self._bank_version = self.bank.version
         return self._bank_dev
 
@@ -730,13 +850,29 @@ class Broker:
         self.rejit_count += 1
         return fn
 
-    def _words_step(self, nfp: int, d_cap: int) -> Callable:
-        """The deleted-side pass: bank words of ``nfp`` stacked D stores of
-        ``d_cap`` rows, flattened into one launch, as int32[nfp, d_cap, W]."""
+    def _words_step(self, nfp: int, cap: int, segmented: bool) -> Callable:
+        """The deleted-side pass, int32[nfp, cap, W]: frontier ``f``'s bank
+        words over ``cap`` rows.
 
-        def words(spos: Sequence[torch.Tensor], bank: torch.Tensor) -> torch.Tensor:
-            w = kops.pattern_bitmask_words(torch.cat(list(spos)), bank, matcher=self.matcher)
-            return w.reshape(nfp, d_cap, -1)
+        Stacked (``segmented=False``): ``rows`` are ``nfp`` D stores' rows,
+        flattened into one words launch. Segmented: ``rows`` is the chain's
+        union, matched once, and ``seg`` its membership bitmap. With
+        ``refine`` (parents, residual) the pass runs over the real bank rows
+        and the virtual words of every frontier follow from one lane-refine
+        launch, after the real words: the extended bank's layout."""
+
+        def words(rows, seg: Optional[torch.Tensor], bank: torch.Tensor, refine) -> torch.Tensor:
+            if segmented:
+                w = kops.pattern_bitmask_words_segmented(rows, bank, seg, nfp, matcher=self.matcher)
+            else:
+                rows = torch.stack(list(rows))
+                w = kops.pattern_bitmask_words(rows.reshape(-1, 3), bank, matcher=self.matcher)
+                w = w.reshape(nfp, cap, -1)
+            if refine is None:
+                return w
+            # a row outside frontier f has zero real bits in plane f, so its
+            # virtual bits are zero too: the planes keep their masks
+            return torch.cat([w, kops.lane_refine(rows, w, *refine)], dim=-1)
 
         return words
 
@@ -895,6 +1031,7 @@ class Broker:
                 d_store=lambda cap: rehome(batch.device_stores()[0], cap),
                 a_store=lambda cap: rehome(batch.device_stores()[1], cap),
                 since=batch.first_id,
+                d_native=lambda: batch.device_stores()[0],
             )
         d_np, a_np = batch.arrays()
 
@@ -955,9 +1092,15 @@ class Broker:
         if cached is not None:
             self._static_arrays_cache.move_to_end(key)
             return cached
+        if isinstance(self.bank, SubsumptionBank):
+            # encoded lane ids (virtual ones from REFINE_BASE) -> rows of
+            # the extended bank; the key's bank version covers the mapping
+            lane_rows = [self.bank.resolve_lanes(subs[k].lanes) for _, k in fk]
+        else:
+            lane_rows = [subs[k].lanes for _, k in fk]
         statics = _assemble_cohort_statics(
             [subs[k].plan.patterns for _, k in fk],
-            [subs[k].lanes for _, k in fk],
+            lane_rows,
             [upos[k] for _, k in fk],
             f_list,
             ncp,
@@ -976,14 +1119,25 @@ class Broker:
         """Every fired frontier through every due cohort; nothing committed.
 
         Returns (per-subscriber outputs, staged (τ', ρ'), cohort passes).
-        One words pass covers every frontier's deleted side; each shape
+        One words pass covers every frontier's deleted side (the segmented
+        pass over the delta chain's union, or the stacked pass); each shape
         cohort runs one step over all the frontiers it fires from (members
-        read their frontier's slices through ``f_map``).
+        read their frontier's slices through ``f_map``), with one slot per
+        lane group when the lattice is on.
         """
         subs = self.subs
         dev = self.device
         # the matcher is built into the steps, so it is part of every key
         mkey = id(self.matcher) if self.matcher is not None else None
+        # the chain needs >= 2 frontiers on the device-resident path, and
+        # its int32 membership bitmap holds at most 32 frontier slots
+        delta_ok = (
+            self.delta_frontiers
+            and self.deferred_device_resident
+            and len(fronts) >= 2
+            and next_pow2(len(fronts)) <= 32
+            and all(fr.d_native is not None for fr in fronts)
+        )
         n_passes = 0  # includes the passes of abandoned overflow attempts
         n_retries = 0
         front_of = {k: fr for fr in fronts for k in fr.idxs}
@@ -998,28 +1152,61 @@ class Broker:
                         subs[k].recompile()
             bank_dev = self._ensure_bank_dev()
             n_words_p = bank_dev.shape[0] // 32
+            # with virtual lanes the words pass runs over the real rows and
+            # lane_refine gives the virtual words (see _words_step)
+            bank_real, refine = self._bank_real_dev, self._refine_dev
+            n_words_r = bank_real.shape[0] // 32
 
             all_idx = [k for fr in fronts for k in fr.idxs]
             d_cap = max(subs[k].caps.n_removed for k in all_idx)
             nf = len(fronts)
             nfp = next_pow2(nf)
-            matched = sum(fr.d_rows for fr in fronts)
-            distinct = max((fr.d_rows for fr in fronts), default=0)
+
+            # the delta chain: the union of the fired D sides (the oldest
+            # frontier's D) with per-frontier membership bits, each row
+            # matched once; the stacked pass when it cannot prove that it
+            # holds every frontier's rows. The union is homed at its own
+            # power-of-two row count, so the whole D side of every cohort
+            # runs at distinct-row shapes
+            chain = None
+            u_cap = d_cap
+            if delta_ok:
+                base_fi = min(range(nf), key=lambda i: fronts[i].since)
+                u_cap = max(64, next_pow2(fronts[base_fi].d_rows))
+                c = build_frontier_chain([fr.d_native() for fr in fronts], base_fi, u_cap)
+                if c.covered:
+                    chain = c
+                else:
+                    u_cap = d_cap
+            if chain is not None:
+                matched = distinct = fronts[base_fi].d_rows
+            else:
+                matched = sum(fr.d_rows for fr in fronts)
+                distinct = max((fr.d_rows for fr in fronts), default=0)
             self._rows_matched_acc += matched
             self._rows_distinct_acc += distinct
             self.rows_matched += matched
             self.rows_distinct += distinct
 
-            # the deleted side: one words pass over every frontier's D store
-            # (padding slots carry empty stores)
-            d_stores = [fr.d_store(d_cap) for fr in fronts]
-            d_spos = [st.spo for st in d_stores] + [_empty_cached(d_cap, dev).spo] * (nfp - nf)
-            wkey = ("words", d_cap, n_words_p, n_words_p, nfp, mkey)
+            # the deleted side: the segmented pass over the chain's union, or
+            # one stacked pass over every frontier's D store (padding slots
+            # carry empty stores)
+            d_stores = None
+            if chain is not None:
+                wkey = ("words-seg", u_cap, n_words_p, n_words_r, nfp, mkey)
+                words_args = (chain.union.spo, chain.seg, bank_real, refine)
+            else:
+                d_stores = [fr.d_store(d_cap) for fr in fronts]
+                d_spos = [st.spo for st in d_stores] + [_empty_cached(d_cap, dev).spo] * (nfp - nf)
+                wkey = ("words", d_cap, n_words_p, n_words_r, nfp, mkey)
+                words_args = (d_spos, None, bank_real, refine)
             miss = wkey not in self._exec_cache
-            words_fn = self._build_exec(wkey, lambda: self._words_step(nfp, d_cap))
+            words_fn = self._build_exec(
+                wkey, lambda: self._words_step(nfp, u_cap if chain is not None else d_cap, chain is not None)
+            )
             if miss:
                 self.words_compiles += 1
-            d_words_all = words_fn(d_spos, bank_dev)  # (nfp, d_cap, W)
+            d_words_all = words_fn(*words_args)  # (nfp, u_cap or d_cap, W)
 
             a_cache: Dict[Tuple[int, int], TripleStore] = {}
 
@@ -1045,9 +1232,11 @@ class Broker:
                 fslot = {fi: i for i, fi in enumerate(fs_used)}
                 nfc = len(fs_used)
                 nfcp = next_pow2(nfc)
-                # unique target replicas (shared-τ groups); each group's
-                # first member's result is the group's
+                # unique target replicas (shared-τ and lane groups); rep_fk
+                # holds each group's first (frontier, subscriber), whose
+                # result is the group's
                 ugroups: List[List[int]] = []
+                rep_fk: List[Tuple[int, int]] = []
                 upos: Dict[int, int] = {}
                 seen: Dict[tuple, int] = {}
                 for fi, k in fk:
@@ -1056,10 +1245,20 @@ class Broker:
                     if gk not in seen:
                         seen[gk] = len(ugroups)
                         ugroups.append([])
+                        rep_fk.append((fi, k))
                     upos[k] = seen[gk]
                     ugroups[seen[gk]].append(k)
-                members = [k for _, k in fk]
-                f_list = [fslot[fi] for fi, _ in fk]
+                if self.subsume_interests:
+                    # one slot per lane group: its members share plan values,
+                    # lanes, capacities, τ, ρ and frontier (what the lineage
+                    # certifies), so their slots would give equal results;
+                    # the outputs fan out to every member below
+                    eval_fk = rep_fk
+                    eval_upos = {k: i for i, (_, k) in enumerate(rep_fk)}
+                else:
+                    eval_fk, eval_upos = fk, upos
+                members = [k for _, k in eval_fk]
+                f_list = [fslot[fi] for fi, _ in eval_fk]
                 nm, nu = len(members), len(ugroups)
                 ncp, nup = next_pow2(nm), next_pow2(nu)
                 self._distinct_acc += nm
@@ -1068,13 +1267,23 @@ class Broker:
                 self.fanout_copies += len(fk)
 
                 pad_f = nfcp - nfc
-                d_sets = tuple(
-                    TripleStore(spo=d_stores[fi].spo[: caps.n_removed], n=d_stores[fi].n)
-                    for fi in fs_used
-                ) + (_empty_cached(caps.n_removed, dev),) * pad_f
-                d_words = tuple(d_words_all[fi, : caps.n_removed] for fi in fs_used)
+                if chain is not None:
+                    # one union store for the whole cohort; each frontier's
+                    # masked words select its rows
+                    d_sets = chain.union
+                    w_rows = u_cap
+                    d_words = tuple(d_words_all[fi] for fi in fs_used)
+                    ckey = ("cohort-delta", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, u_cap, mkey, None)
+                else:
+                    d_sets = tuple(
+                        TripleStore(spo=d_stores[fi].spo[: caps.n_removed], n=d_stores[fi].n)
+                        for fi in fs_used
+                    ) + (_empty_cached(caps.n_removed, dev),) * pad_f
+                    w_rows = caps.n_removed
+                    d_words = tuple(d_words_all[fi, : caps.n_removed] for fi in fs_used)
+                    ckey = ("cohort", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, mkey, None)
                 if pad_f:
-                    zero_w = torch.zeros((caps.n_removed, n_words_p), dtype=torch.int32, device=dev)
+                    zero_w = torch.zeros((w_rows, n_words_p), dtype=torch.int32, device=dev)
                     d_words = d_words + (zero_w,) * pad_f
                 a_sets = tuple(a_of(fi, caps.n_added) for fi in fs_used) + (
                     _empty_cached(caps.n_added, dev),
@@ -1083,13 +1292,12 @@ class Broker:
                     _empty_cached(caps.tau, dev),
                 ) * (nup - nu)
                 rhos_c = tuple(subs[k].rho for k in members) + (_empty_cached(caps.rho, dev),) * (ncp - nm)
-                ckey = ("cohort", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, mkey, None)
-                statics = self._static_arrays(ckey, fk, f_list, upos, ncp, nt, bank_dev.shape[0])
+                statics = self._static_arrays(ckey, eval_fk, f_list, eval_upos, ncp, nt, bank_dev.shape[0])
                 miss = ckey not in self._exec_cache
                 fn = self._build_exec(
                     ckey,
                     lambda rep=rep, caps=caps, id_cap=id_cap: make_cohort_step(
-                        rep.plan, caps, id_cap, matcher=self.matcher
+                        rep.plan, caps, id_cap, matcher=self.matcher, delta=chain is not None
                     ),
                 )
                 if miss:
@@ -1102,7 +1310,7 @@ class Broker:
                     if bool(out.overflow):
                         overflowed.extend(g)
                         continue
-                    for k in g:  # shared-τ members adopt one state object
+                    for k in g:  # group members adopt one state object
                         outs[k] = out
                         staged[k] = (tau1_c[pos0], rho1_c[pos0])
 

@@ -1,12 +1,15 @@
 """Interest expressions (Definition 7) and their compilation to static plans.
 
-The compile half and the pattern banks of ``repro.core.interest``, copied
-(numpy only): an interest expression ``i_g = <τ, b, op>`` is compiled into a
-``CompiledInterest`` holding dictionary-encoded pattern constants (numpy) and
-a static query plan (root variable, child stars, edge patterns) that the
-evaluator in :mod:`repro_torch.core.evaluation` closes over; the broker
-deduplicates the patterns of many plans into one ``IncrementalPatternBank``.
-Plans, lanes and banks are equal to the reference's field for field.
+The compile half, the canonical form and the pattern banks of
+``repro.core.interest``, copied (numpy only): an interest expression
+``i_g = <τ, b, op>`` is compiled into a ``CompiledInterest`` holding
+dictionary-encoded pattern constants (numpy) and a static query plan (root
+variable, child stars, edge patterns) that the evaluator in
+:mod:`repro_torch.core.evaluation` closes over; the broker canonicalizes
+expressions (:func:`canonicalize_expr`) and deduplicates the patterns of many
+plans into one ``IncrementalPatternBank``, or a ``SubsumptionBank`` whose
+contained patterns ride virtual lanes. Plans, keys, lanes and banks are equal
+to the reference's field for field.
 
 Supported BGP shape: connected patterns whose join graph is a tree of depth
 <= 2 (one root variable + any number of child variables each linked to the
@@ -58,6 +61,70 @@ class InterestExpr:
             bgp=tuple(TriplePattern(*t) for t in bgp),
             ogp=tuple(TriplePattern(*t) for t in ogp),
         )
+
+
+def canonicalize_expr(expr: InterestExpr) -> Tuple[InterestExpr, tuple]:
+    """Canonical form of an interest expression; returns ``(expr', key)``.
+
+    **Canonical-form contract.** A BGP/OGP is a *set* of triple patterns and
+    variable names are bound positions, not identities (Definitions 2-4), so
+    two expressions that differ only in pattern order and/or a bijective
+    variable renaming denote the same interest. This function maps every
+    member of such an equivalence class that it can recognize onto one
+    representative:
+
+    1. patterns are ordered by their *constant skeleton* (each variable slot
+       replaced by ``"?"``) — a key independent of variable naming;
+    2. variables are renamed ``?v0, ?v1, ...`` in order of first occurrence
+       over the skeleton-sorted BGP then OGP;
+    3. patterns are re-sorted by their full (renamed) term tuples, making
+       the order independent of the input order even among patterns with
+       equal skeletons.
+
+    Guarantees: **equal keys imply equivalent interests** — the key embeds
+    the source/target names and the complete renamed pattern lists, and the
+    canonical expression is reconstructed from the input by a permutation
+    plus a bijective renaming only, so any two expressions with the same
+    key are permutations/renamings of the same canonical expression and
+    evaluate identically (bit-identically: evaluation outputs are canonical
+    lex-sorted stores, which erase pattern order). The converse does NOT
+    hold: expressions whose equivalence needs a non-trivial automorphism
+    argument may land on different keys — that costs a missed collapse in
+    the broker's subsumption lattice, never a wrong one.
+
+    The broker compiles and evaluates the *canonical* expression for every
+    subscription in a lane group, so equal keys also share compiled plans,
+    bank lanes, and cohort slots.
+    """
+
+    def skeleton(p: TriplePattern) -> Tuple[str, str, str]:
+        return tuple("?" if is_var(t) else t for t in p.slots())
+
+    bgp = sorted(expr.bgp, key=skeleton)
+    ogp = sorted(expr.ogp, key=skeleton)
+    renames: Dict[str, str] = {}
+
+    def rename(t: str) -> str:
+        if not is_var(t):
+            return t
+        if t not in renames:
+            renames[t] = f"?v{len(renames)}"
+        return renames[t]
+
+    bgp = [TriplePattern(*(rename(t) for t in p.slots())) for p in bgp]
+    ogp = [TriplePattern(*(rename(t) for t in p.slots())) for p in ogp]
+    bgp = tuple(sorted(bgp, key=lambda p: p.slots()))
+    ogp = tuple(sorted(ogp, key=lambda p: p.slots()))
+    canon = InterestExpr(
+        source=expr.source, target=expr.target, bgp=bgp, ogp=ogp
+    )
+    key = (
+        expr.source,
+        expr.target,
+        tuple(p.slots() for p in bgp),
+        tuple(p.slots() for p in ogp),
+    )
+    return canon, key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,6 +416,329 @@ class IncrementalPatternBank:
         for lane, row in enumerate(self._rows):
             if row is not None:
                 out[lane] = row
+        return out
+
+
+# encoded lane-id space: real bank lanes are < REFINE_BASE, virtual refined
+# lanes are REFINE_BASE + slot (resolved to a dense index only at device
+# assembly time, when the current padded real-lane count is known)
+REFINE_BASE = 1 << 24
+
+_WC = int(WILDCARD)
+
+
+def row_subsumes(parent: Tuple[int, int, int], child: Tuple[int, int, int]) -> bool:
+    """Pattern-wise term subsumption (the Fedra containment test, per row):
+    ``parent`` matches a superset of ``child`` iff every parent slot is
+    either a variable (-1) or the same constant as the child's slot.
+    Strict (``parent != child``) subsumption additionally needs at least
+    one variable-over-constant slot."""
+    return all(p == _WC or p == c for p, c in zip(parent, child))
+
+
+def residual_of(
+    parent: Tuple[int, int, int], child: Tuple[int, int, int]
+) -> Tuple[int, int, int]:
+    """The residual predicate turning parent match bits into child match
+    bits: the child's constants in exactly the slots the parent leaves
+    variable (wildcard everywhere else). ``child`` ≡ ``parent`` AND
+    residual, which is what :func:`repro_torch.kernels.ops.lane_refine`
+    evaluates."""
+    return tuple(
+        c if (p == _WC and c != _WC) else _WC for p, c in zip(parent, child)
+    )
+
+
+class SubsumptionBank:
+    """Containment-DAG view over an :class:`IncrementalPatternBank`.
+
+    The plain bank dedups *identical* pattern rows; this wrapper
+    additionally recognizes rows that an existing bank row strictly
+    subsumes (constant where the parent has a variable, equal elsewhere)
+    and registers them as **virtual refined lanes** instead of new bank
+    rows: a virtual lane's match bits are its parent lane's bits ANDed
+    with a cheap residual predicate over the newly-bound slots
+    (:func:`repro_torch.kernels.ops.lane_refine`), so contained interests ride
+    the parent's one bank compare instead of widening the shared bank
+    pass. Resolution order for each registered row:
+
+    1. exact match against a live bank row  -> shared real lane;
+    2. exact match against a live virtual row -> shared virtual lane;
+    3. a live bank row strictly subsumes it -> NEW virtual lane (parent =
+       the subsuming row with the most bound slots, lowest lane on ties);
+    4. otherwise -> new real bank lane.
+
+    The parent edges form a depth-1 containment DAG (virtual rows refine
+    real rows only; transitive chains are not built). Every
+    virtual row holds a reference on its parent lane, so the parent can
+    never be tombstoned from under it. Encoded lane ids returned by
+    :meth:`add_plan`: real ids ``< REFINE_BASE``, virtual ids
+    ``REFINE_BASE + slot``; :meth:`resolve_lanes` maps them into the
+    extended device row space ``[real padded | virtual padded]`` that
+    :meth:`patterns_padded` materializes (virtual rows appear there as
+    their full child patterns, so the added-side fused match kernel needs
+    no refine support — only the shared deleted-side words pass exploits
+    the DAG).
+    """
+
+    def __init__(self):
+        self.bank = IncrementalPatternBank()
+        # slot -> (child row, parent real lane, residual row) | None
+        self._vrows: List[Optional[tuple]] = []
+        self._vrefs: List[int] = []
+        self._vfree: List[int] = []
+        self._vtable: Dict[Tuple[int, int, int], int] = {}
+        self._vversion = 0
+
+    @classmethod
+    def restore(
+        cls,
+        rows: Sequence[Optional[Tuple[int, int, int]]],
+        refs: Sequence[int],
+        free: Sequence[int],
+        virtual_rows: Sequence[Optional[tuple]] = (),
+        virtual_refs: Sequence[int] = (),
+        virtual_free: Sequence[int] = (),
+    ) -> "SubsumptionBank":
+        """A bank in a given state. ``rows`` / ``refs`` / ``free`` are the
+        real lanes, as for :meth:`IncrementalPatternBank.restore`. Virtual
+        slot ``v`` holds ``virtual_rows[v]`` = (child row, parent real lane,
+        residual row), or None for a free slot, with ``virtual_refs[v]``
+        references; ``virtual_free`` lists the free slots in reuse order (the
+        last is reused first). Every live slot's parent must be a live real
+        lane that strictly subsumes the child with that residual."""
+        if len(virtual_rows) != len(virtual_refs) or sorted(virtual_free) != [
+            v for v, ent in enumerate(virtual_rows) if ent is None
+        ]:
+            raise ValueError("virtual rows, refs and free do not describe one lane space")
+        out = cls()
+        out.bank = IncrementalPatternBank.restore(rows, refs, free)
+        vrows: List[Optional[tuple]] = []
+        for ent, ref in zip(virtual_rows, virtual_refs):
+            if ent is None:
+                if int(ref) != 0:
+                    raise ValueError("a free virtual slot holds references")
+                vrows.append(None)
+                continue
+            key, parent, residual = ent
+            key = tuple(int(x) for x in key)
+            residual = tuple(int(x) for x in residual)
+            parent = int(parent)
+            prow = out.bank.row_of(parent) if 0 <= parent < out.bank.n_lanes else None
+            if (
+                prow is None
+                or prow == key
+                or not row_subsumes(prow, key)
+                or residual_of(prow, key) != residual
+                or int(ref) <= 0
+                or out.bank.lane_of(key) is not None
+            ):
+                raise ValueError(f"virtual row {key} is not a live refinement of real lane {parent}")
+            vrows.append((key, parent, residual))
+        out._vrows = vrows
+        out._vrefs = [int(x) for x in virtual_refs]
+        out._vfree = [int(x) for x in virtual_free]
+        out._vtable = {ent[0]: v for v, ent in enumerate(vrows) if ent is not None}
+        if len(out._vtable) != len(vrows) - len(out._vfree):
+            raise ValueError("live virtual slots must hold distinct rows")
+        return out
+
+    # -- shape/version surface (IncrementalPatternBank-compatible) ----------
+
+    @property
+    def version(self) -> int:
+        return self.bank.version + self._vversion
+
+    @property
+    def n_lanes(self) -> int:
+        return self.bank.n_lanes + len(self._vrows)
+
+    @property
+    def n_live(self) -> int:
+        return self.bank.n_live + len(self._vrows) - len(self._vfree)
+
+    @property
+    def n_real(self) -> int:
+        return self.bank.n_live
+
+    @property
+    def n_virtual(self) -> int:
+        return len(self._vrows) - len(self._vfree)
+
+    @property
+    def n_real_padded(self) -> int:
+        return self.bank.n_lanes_padded
+
+    @property
+    def n_virt_padded(self) -> int:
+        if not self._vrows:
+            return 0
+        return next_pow2(max(32, len(self._vrows)))
+
+    @property
+    def n_lanes_padded(self) -> int:
+        return self.n_real_padded + self.n_virt_padded
+
+    @property
+    def n_words(self) -> int:
+        return self.n_lanes_padded // 32
+
+    def patterns_padded(self) -> np.ndarray:
+        """Extended padded bank: real rows, then virtual rows materialized
+        as their full child patterns (dead slots never match)."""
+        real = self.bank.patterns_padded()
+        if not self._vrows:
+            return real
+        virt = np.full(
+            (self.n_virt_padded, 3), np.int32(_DEAD_ROW[0]), np.int32
+        )
+        for v, ent in enumerate(self._vrows):
+            if ent is not None:
+                virt[v] = ent[0]
+        return np.concatenate([real, virt], axis=0)
+
+    def real_padded(self) -> np.ndarray:
+        """The real-rows-only padded bank (the deleted-side words pass)."""
+        return self.bank.patterns_padded()
+
+    def refine_arrays(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """(parents int32[Vp], residual int32[Vp, 3]) for
+        :func:`repro_torch.kernels.ops.lane_refine`, or None with no virtual
+        rows. Dead slots carry parent -1 (bits forced to zero)."""
+        if not self._vrows:
+            return None
+        vp = self.n_virt_padded
+        parents = np.full((vp,), -1, np.int32)
+        residual = np.full((vp, 3), np.int32(_DEAD_ROW[0]), np.int32)
+        for v, ent in enumerate(self._vrows):
+            if ent is not None:
+                parents[v] = ent[1]
+                residual[v] = ent[2]
+        return parents, residual
+
+    def resolve_lanes(self, lanes: Sequence[int]) -> Tuple[int, ...]:
+        """Encoded lane ids -> dense extended row indices (valid until the
+        next version bump — the padded real-lane count is baked in)."""
+        base = self.n_real_padded
+        return tuple(
+            l if l < REFINE_BASE else base + (l - REFINE_BASE) for l in lanes
+        )
+
+    # -- registration --------------------------------------------------------
+
+    def _find_parent(self, key: Tuple[int, int, int]) -> Optional[int]:
+        best, best_bound = None, -1
+        for lane in range(self.bank.n_lanes):
+            row = self.bank.row_of(lane)
+            if row is None or row == key:
+                continue
+            if not row_subsumes(row, key):
+                continue
+            bound = sum(1 for t in row if t != _WC)
+            if bound > best_bound:
+                best, best_bound = lane, bound
+        return best
+
+    def add_plan(self, plan: CompiledInterest) -> Tuple[int, ...]:
+        """Register one plan's rows; returns its encoded lane map."""
+        local: List[int] = []
+        for j in range(plan.n_total):
+            key = (
+                int(plan.patterns[j, 0]),
+                int(plan.patterns[j, 1]),
+                int(plan.patterns[j, 2]),
+            )
+            if self.bank.lane_of(key) is not None:
+                local.append(self.bank.acquire_row(key))
+                continue
+            v = self._vtable.get(key)
+            if v is not None:
+                self._vrefs[v] += 1
+                local.append(REFINE_BASE + v)
+                continue
+            parent = self._find_parent(key)
+            if parent is None:
+                local.append(self.bank.acquire_row(key))
+                continue
+            self.bank.retain_lane(parent)
+            ent = (key, parent, residual_of(self.bank.row_of(parent), key))
+            if self._vfree:
+                v = self._vfree.pop()
+                self._vrows[v] = ent
+                self._vrefs[v] = 1
+            else:
+                v = len(self._vrows)
+                self._vrows.append(ent)
+                self._vrefs.append(1)
+            self._vtable[key] = v
+            self._vversion += 1
+            local.append(REFINE_BASE + v)
+        return tuple(local)
+
+    def remove_plan(self, lanes: Sequence[int]) -> None:
+        for lane in lanes:
+            if lane < REFINE_BASE:
+                self.bank.release_row(lane)
+                continue
+            v = lane - REFINE_BASE
+            self._vrefs[v] -= 1
+            if self._vrefs[v] == 0:
+                key, parent, _ = self._vrows[v]
+                del self._vtable[key]
+                self._vrows[v] = None
+                self._vfree.append(v)
+                self.bank.release_row(parent)
+                self._vversion += 1
+            elif self._vrefs[v] < 0:
+                raise ValueError(
+                    f"virtual lane {v} released more than acquired"
+                )
+
+    def maybe_compact(self, force: bool = False) -> Optional[Dict[int, int]]:
+        """Compact real and virtual lane spaces when that shrinks their
+        padded device shapes (same rule as the plain bank). Returns a
+        TOTAL encoded remap over every live lane id (identity entries
+        included), or None when nothing moved."""
+        live_real_old = self.bank.live_lanes()
+        remap_r = self.bank.maybe_compact(force)
+        if remap_r is not None:
+            for v, ent in enumerate(self._vrows):
+                if ent is not None:
+                    key, parent, residual = ent
+                    self._vrows[v] = (key, remap_r[parent], residual)
+            self._vversion += 1
+        remap_v = None
+        if self._vfree:
+            live = len(self._vrows) - len(self._vfree)
+            new_pad = next_pow2(max(32, live)) if live else 0
+            if force or new_pad < self.n_virt_padded:
+                remap_v = {}
+                rows, refs = [], []
+                for v, ent in enumerate(self._vrows):
+                    if ent is None:
+                        continue
+                    remap_v[v] = len(rows)
+                    rows.append(ent)
+                    refs.append(self._vrefs[v])
+                self._vrows, self._vrefs, self._vfree = rows, refs, []
+                self._vtable = {
+                    ent[0]: v for v, ent in enumerate(rows)
+                }
+                self._vversion += 1
+        if remap_r is None and remap_v is None:
+            return None
+        out: Dict[int, int] = (
+            dict(remap_r)
+            if remap_r is not None
+            else {lane: lane for lane in live_real_old}
+        )
+        if remap_v is not None:
+            for old, new in remap_v.items():
+                out[REFINE_BASE + old] = REFINE_BASE + new
+        else:
+            for key in self._vtable:
+                v = self._vtable[key]
+                out[REFINE_BASE + v] = REFINE_BASE + v
         return out
 
 

@@ -1,7 +1,6 @@
 """Interest evaluation combination and update propagation (Defs 6, 13-18).
 
-Port of ``repro.core.propagation`` without the frontier chain.
-:func:`make_interest_step` builds the per-changeset step for one interest:
+Port of ``repro.core.propagation``. :func:`make_interest_step` builds the per-changeset step for one interest:
 
     d(i, D)        -> <r, r_i, r'>          (Def 13, over deleted triples)
     α(i, A ∪ ρ)    -> <a, a_i, a'>          (Def 14, over added ∪ potential)
@@ -16,14 +15,16 @@ reallocates at doubled capacities and runs the changeset again; the one
 host sync per changeset is that overflow flag.
 
 For the broker, :func:`compose_changesets` composes two changesets under
-Definition 6 and :class:`ChangesetBatch` accumulates the pending changesets
-of one consumption frontier on the broker's device.
+Definition 6, :class:`ChangesetBatch` accumulates the pending changesets
+of one consumption frontier on the broker's device, and
+:func:`build_frontier_chain` delta-encodes the deleted sides of several
+frontiers that fire together (:class:`FrontierChain`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ import torch
 from .dictionary import Dictionary
 from .evaluation import SideResult, build_index, make_side_evaluator
 from .interest import CompiledInterest, InterestExpr, compile_interest, next_pow2
-from .triples import TripleStore, difference, empty, from_array, rehome, to_numpy, union
+from ..kernels.ref import or_bit
+from .triples import PAD, TripleStore, difference, empty, from_array, member, rehome, to_numpy, union
 
 
 def resolve_device(device=None) -> torch.device:
@@ -138,6 +140,72 @@ def compose_changesets(
     d, ovf_d = union(d1, d2, capacity)
     a, ovf_a = union(difference(a1, d2), a2, capacity)
     return d, a, ovf_d | ovf_a
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierChain:
+    """Delta-encoded view of the deleted sides of several fired frontiers.
+
+    Every pending :class:`ChangesetBatch` composes a suffix of the changeset
+    stream, so a row deleted once lies in the composed D of every frontier
+    whose suffix covers it. The chain factors that out:
+
+    ``union``
+        the lex-sorted store of the distinct D rows across the frontiers
+        (under Definition 6 D sides compose by union, so this is the oldest
+        frontier's composed D, re-homed, never re-sorted);
+    ``seg``
+        int32 membership bitmap over the union rows: bit ``f`` set iff union
+        row ``i`` lies in frontier ``f``'s composed D, found by probing the
+        union rows into each frontier's own store (not assumed from the
+        nesting: the A sides compose non-monotonically);
+    ``covered``
+        host bool, True iff every frontier's store lies wholly in the union;
+        the broker falls back to the stacked pass when it is False, so a
+        chain never drops rows.
+
+    One segmented bank pass over ``union``
+    (:func:`repro_torch.kernels.ops.pattern_bitmask_words_segmented`) then
+    gives every frontier's words, each distinct row matched once; a row
+    outside a frontier has zero words, which the evaluator turns into no
+    candidates and no outputs.
+    """
+
+    union: TripleStore
+    seg: torch.Tensor  # int32[capacity], bit f = frontier f
+    covered: bool
+    n_frontiers: int
+
+
+def _chain_membership(union: TripleStore, stores: Sequence[TripleStore]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(membership bitmap over the union rows, all-covered flag on the device)."""
+    valid = union.spo[:, 0] != PAD
+    seg = torch.zeros(union.spo.shape[0], dtype=torch.int32, device=union.spo.device)
+    covered = torch.ones((), dtype=torch.bool, device=union.spo.device)
+    for f, st in enumerate(stores):
+        m = member(st, union.spo) & valid
+        seg = or_bit(seg, m, f)
+        covered = covered & (m.sum(dtype=torch.int32) == st.n)
+    return seg, covered
+
+
+def build_frontier_chain(d_stores: Sequence[TripleStore], base: int, capacity: int) -> FrontierChain:
+    """Chain the deleted sides of the fired frontiers for one segmented pass.
+
+    ``d_stores`` are the frontiers' composed device stores (any capacities;
+    index ``f`` becomes membership bit ``f``, at most 32); ``base`` names
+    the frontier whose store is the distinct-row union (the oldest under
+    Definition 6). Every store is re-homed to ``capacity`` (the caller sizes
+    it to the base's rows), and membership is probed per frontier (K2 on the
+    card), so the chain is right, or reports ``covered=False``, for stores
+    that are not suffix-nested too. Reads one bool from the device.
+    """
+    if not 1 <= len(d_stores) <= 32:
+        raise ValueError(f"a chain holds 1 to 32 frontiers, got {len(d_stores)}")
+    union = rehome(d_stores[base], capacity)
+    homed = [rehome(st, capacity) for st in d_stores]
+    seg, covered = _chain_membership(union, homed)
+    return FrontierChain(union=union, seg=seg, covered=bool(covered), n_frontiers=len(d_stores))
 
 
 @dataclasses.dataclass

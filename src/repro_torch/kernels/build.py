@@ -25,6 +25,8 @@ SOURCES = {
     "merge_probe": "merge_probe.cu",
     "triple_match_words": "triple_match_words.cu",
     "triple_match_lanes": "triple_match_lanes.cu",
+    "triple_match_words_segmented": "triple_match_words_segmented.cu",
+    "lane_refine": "lane_refine.cu",
 }
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

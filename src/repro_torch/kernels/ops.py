@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-from . import merge_join, ref, triple_match, triple_match_lanes, triple_match_words
+from . import lane_refine as lane_refine_kernel
+from . import merge_join, ref, triple_match, triple_match_lanes, triple_match_words, triple_match_words_segmented
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -52,6 +53,47 @@ def pattern_bitmask_words(spo: torch.Tensor, patterns: torch.Tensor, *, matcher=
     if _on_card(spo):
         return triple_match_words.triple_match_words_cuda(spo, patterns)
     return ref.pattern_bitmask_words_ref(spo, patterns)
+
+
+def pattern_bitmask_words_segmented(
+    spo: torch.Tensor, patterns: torch.Tensor, seg: torch.Tensor, n_seg: int, *, matcher=None
+) -> torch.Tensor:
+    """int32[n_seg, N, W] segment-masked bank bitsets from one match pass.
+
+    ``seg``: int32[N] membership bitmap, bit ``f`` set iff row ``i`` belongs
+    to segment ``f`` (bits at or above ``n_seg`` ignored, ``1 <= n_seg <=
+    32``). Plane ``f`` holds :func:`pattern_bitmask_words` for the rows of
+    segment ``f`` and 0 for the others: the delta frontier chain's deleted
+    side, each distinct row of several frontiers matched once.
+
+    With a custom ``matcher`` the words come from the chunked
+    :func:`pattern_bitmask_words` pass and are masked after it, so the hook
+    sees one pass per 32-lane word, never one per segment.
+    """
+    if matcher is not None:
+        return ref.segment_planes(pattern_bitmask_words(spo, patterns, matcher=matcher), seg, n_seg)
+    if _on_card(spo):
+        return triple_match_words_segmented.triple_match_words_segmented_cuda(spo, patterns, seg, n_seg)
+    return ref.pattern_bitmask_words_segmented_ref(spo, patterns, seg, n_seg)
+
+
+def lane_refine(
+    spo: torch.Tensor, words: torch.Tensor, parents: torch.Tensor, residual: torch.Tensor
+) -> torch.Tensor:
+    """int32[..., N, Wv] virtual-lane words of the subsumption lattice.
+
+    Virtual slot ``v`` holds a pattern strictly contained by real bank lane
+    ``parents[v]`` (the child is the parent AND ``residual[v]``); its bit is
+    the parent lane's bit in ``words`` (int32[..., N, W], the real-bank words
+    of ``spo``) AND the residual compare, the same bits the words pass would
+    give for the child patterns. ``parents[v] == -1`` is a dead slot.
+    ``words`` may carry a leading plane axis; ``spo`` is then one row set
+    shared by every plane (int32[N, 3]) or one a plane (int32[F, N, 3]), and
+    all planes take one launch on the card.
+    """
+    if _on_card(words):
+        return lane_refine_kernel.lane_refine_cuda(spo, words, parents, residual)
+    return ref.lane_refine_ref(spo, words, parents, residual)
 
 
 def pattern_lane_bits_batched(

@@ -60,6 +60,63 @@ def pattern_bitmask_words_ref(spo: torch.Tensor, patterns: torch.Tensor) -> torc
     )
 
 
+def pattern_bitmask_words_segmented_ref(
+    spo: torch.Tensor, patterns: torch.Tensor, seg: torch.Tensor, n_seg: int
+) -> torch.Tensor:
+    """int32[n_seg, N, W] segment-masked bank bitset.
+
+    ``seg``: int32[N] membership bitmap, bit ``f`` set iff row ``i`` belongs
+    to segment ``f`` (bits at or above ``n_seg`` ignored, ``1 <= n_seg <=
+    32``). Plane ``f`` is :func:`pattern_bitmask_words_ref` with the rows
+    outside segment ``f`` zeroed: the match runs once, the planes are masks.
+    Plain version of the segmented words kernel
+    (``triple_match_words_segmented_cuda``).
+    """
+    return segment_planes(pattern_bitmask_words_ref(spo, patterns), seg, n_seg)
+
+
+def segment_planes(words: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """int32[n_seg, N, W]: plane ``f`` is ``words`` (int32[N, W]) with the
+    rows whose ``seg`` bit ``f`` is clear zeroed (``1 <= n_seg <= 32``)."""
+    if not 1 <= n_seg <= 32:
+        raise ValueError(f"n_seg must be in [1, 32], got {n_seg}")
+    shifts = torch.arange(n_seg, dtype=torch.int32, device=words.device)
+    member = ((seg.to(words.device)[None, :] >> shifts[:, None]) & 1) == 1
+    return torch.where(member[:, :, None], words[None], torch.zeros_like(words[None]))
+
+
+def lane_refine_ref(
+    spo: torch.Tensor, words: torch.Tensor, parents: torch.Tensor, residual: torch.Tensor
+) -> torch.Tensor:
+    """int32[..., N, Wv] virtual-lane words refined from real-bank words.
+
+    ``words``: int32[..., N, W] real-bank words (a leading axis holds
+    planes); ``spo``: the rows, int32[N, 3] shared by every plane or
+    int32[..., N, 3] one set a plane; ``parents``: int32[Vp], the parent bank
+    lane of each virtual slot; ``residual``: int32[Vp, 3], the child's
+    constants in the slots its parent leaves variable (-1 elsewhere). Bit
+    ``v % 32`` of word ``v // 32`` is the parent lane's bit AND the residual
+    compare; a parent of -1, or one outside the words' ``32 W`` lanes, is a
+    dead slot (0). ``Wv = max(1, ceil(Vp / 32))``. Plain version of the
+    lane-refine kernel (``lane_refine_cuda``).
+    """
+    vp = parents.shape[0]
+    n_bits = 32 * words.shape[-1]
+    out = torch.zeros((*words.shape[:-1], max(1, -(-vp // 32))), dtype=torch.int32, device=words.device)
+    pars = parents.cpu().tolist()
+    res = residual.cpu().tolist()
+    spo = spo.to(words.device)
+    for v, par in enumerate(pars):
+        if not 0 <= par < n_bits:
+            continue
+        m = ((words[..., par // 32] >> (par % 32)) & 1) == 1
+        for k in range(3):
+            if res[v][k] != WILDCARD:
+                m = m & (spo[..., k] == res[v][k])
+        out[..., v // 32] = or_bit(out[..., v // 32], m, v % 32)
+    return out
+
+
 def pattern_lane_bits_ref(
     spo_b: torch.Tensor,
     patterns: torch.Tensor,

@@ -1,11 +1,15 @@
 """repro_torch's Broker against repro's (CPU, exact).
 
-The port's ``Broker(d, device="cpu")`` is the reference's
-``Broker(d, subsume_interests=False, delta_frontiers=False)``. One script of
-subscribe / changeset / flush / unsubscribe steps drives both; after every
+The port's ``Broker(d, device="cpu", **options)`` is the reference's
+``Broker(d, **options)``. One script of subscribe / changeset / flush /
+unsubscribe steps drives both, with the same constructor options; after every
 step each subscriber's result (all five output stores, or None when its
 policy deferred it), every live subscriber's τ and ρ, and every
-``BrokerStats`` field except the two times must be equal. Scenarios:
+``BrokerStats`` field except the two times must be equal. The scripts of this
+file, ``_lifecycle``, ``_stream``, ``_options`` and ``_hooks`` hold the
+brokers with the lattice and the delta chain off (``LATTICE_OFF``);
+``test_torch_broker_default.py`` holds the default configuration.
+Scenarios:
 
 * the paper's running example with four subscribers under three policies,
   one overflowing its capacities, ending in a flush that fires two
@@ -38,6 +42,8 @@ A = "rdf:type"
 OUT_FIELDS = ("r", "r_i", "r_prime", "a", "a_i")
 TIMES = ("elapsed_s", "rejit_s")
 EMPTY = np.zeros((0, 3), np.int32)
+# the stacked flush without the subsumption lattice (the reference's PR 3-5 broker)
+LATTICE_OFF = dict(subsume_interests=False, delta_frontiers=False)
 
 
 # ---------------------------------------------------------------------------
@@ -63,13 +69,13 @@ def store_np(store):
 
 def new_broker(mod, terms, options=None):
     """A broker of ``mod`` over ``terms``; ``options`` are further
-    constructor arguments, the same for both packages."""
+    constructor arguments, the same for both packages (none: the defaults)."""
     options = options or {}
     if mod is jcore:
         d = jcore.Dictionary()
         for t in terms:
             d.encode_term(t)
-        return jcore.Broker(d, subsume_interests=False, delta_frontiers=False, **options)
+        return jcore.Broker(d, **options)
     return tcore.Broker(tcore.load_dictionary(terms), device="cpu", **options)
 
 
@@ -210,12 +216,12 @@ def paper_script():
 @pytest.fixture(scope="module")
 def paper_reference():
     terms, script, _, _ = paper_script()
-    return run_script(jcore, terms, script)
+    return run_script(jcore, terms, script, options=LATTICE_OFF)
 
 
 def test_paper_example_equals_reference(paper_reference):
     terms, script, _, _ = paper_script()
-    port = run_script(tcore, terms, script)
+    port = run_script(tcore, terms, script, options=LATTICE_OFF)
     assert_runs_equal(port, paper_reference)
     # overflow doubled only the tiny subscriber's capacities
     assert port[1]["athlete#tiny"].caps.tau > TINY_CAPS["tau"]
@@ -240,10 +246,11 @@ def as_rows(rows):
     return np.asarray(sorted(rows), np.int32).reshape(-1, 3)
 
 
-def check_against_engine(terms, script):
-    """Every fire of the port broker equals the port IrapEngine applied to the
-    subscriber's composed changeset since its last fire."""
-    _, _, records, _, _ = run_script(tcore, terms, script)
+def check_against_engine(terms, script, options=None):
+    """Every fire of the port broker (constructor ``options``) equals the
+    port IrapEngine applied to the subscriber's composed changeset since its
+    last fire."""
+    _, _, records, _, _ = run_script(tcore, terms, script, options=options)
     d = tcore.load_dictionary(terms)
     engine = tcore.IrapEngine(d, device="cpu")
     shadow, pending = {}, {}
@@ -278,7 +285,7 @@ def check_against_engine(terms, script):
 
 def test_paper_example_equals_port_engine():
     terms, script, _, _ = paper_script()
-    assert check_against_engine(terms, script) == 3 + 2 + 1 + 3
+    assert check_against_engine(terms, script, options=LATTICE_OFF) == 3 + 2 + 1 + 3
 
 
 def test_make_broker_step_equals_reference():
@@ -333,7 +340,7 @@ def test_state_carry_continues_bit_identically(paper_reference):
         for s in r_broker.subs
     ]
     port = tcore.carry_broker(terms, bank._rows, bank._refs, bank._free, states,
-                              seq=r_broker._seq, last_cid=r_broker._last_cid, device="cpu")
+                              seq=r_broker._seq, last_cid=r_broker._last_cid, device="cpu", **LATTICE_OFF)
     more = [("cs", *changesets[1]), ("sub", "late", TYPES, PAPER_CAPS, ("eager",), tau0, False),
             ("cs", *changesets[0]), ("cs", *changesets[2]), ("flush",)]
     # carry the reference broker itself on, and the port broker beside it
@@ -357,7 +364,7 @@ def test_state_carry_continues_bit_identically(paper_reference):
 
 def test_state_carry_refuses_pending_changesets_and_wrong_lanes():
     terms, _, changesets, tau0 = paper_script()
-    broker = tcore.Broker(tcore.load_dictionary(terms), device="cpu")
+    broker = tcore.Broker(tcore.load_dictionary(terms), device="cpu", **LATTICE_OFF)
     s = broker.subscribe(tcore.InterestExpr.parse("g", "t", *ATHLETE), tcore.StepCapacities(**PAPER_CAPS),
                          initial_target=tau0, policy=tcore.PushPolicy.every(2))
     broker.process_changeset(*changesets[0])  # pending: deferred by every(2)
@@ -367,16 +374,48 @@ def test_state_carry_refuses_pending_changesets_and_wrong_lanes():
         lanes=s.lanes, since=s.since)
     with pytest.raises(ValueError, match="pending"):
         tcore.carry_broker(terms, bank._rows, bank._refs, bank._free, [state], seq=broker._seq,
-                           last_cid=broker._last_cid, device="cpu")
+                           last_cid=broker._last_cid, device="cpu", **LATTICE_OFF)
     broker.flush()
     good = dataclasses.replace(state, since=s.since, tau=store_np(s.tau), rho=store_np(s.rho))
     carried = tcore.carry_broker(terms, bank._rows, bank._refs, bank._free, [good], seq=broker._seq,
-                                 last_cid=broker._last_cid, device="cpu")
+                                 last_cid=broker._last_cid, device="cpu", **LATTICE_OFF)
     assert carried.subs[0].lanes == s.lanes
     bad = dataclasses.replace(good, lanes=tuple(reversed(s.lanes)))
     with pytest.raises(ValueError, match="lanes"):
         tcore.carry_broker(terms, bank._rows, bank._refs, bank._free, [bad], seq=broker._seq,
-                           last_cid=broker._last_cid, device="cpu")
+                           last_cid=broker._last_cid, device="cpu", **LATTICE_OFF)
+
+
+def test_state_carry_of_the_default_broker_refuses_pending_changesets_and_wrong_lanes():
+    """The same refusals with the lattice on: the bank is a SubsumptionBank,
+    whose real lanes, virtual lanes and lane-group signatures are carried."""
+    terms, _, changesets, tau0 = paper_script()
+    broker = tcore.Broker(tcore.load_dictionary(terms), device="cpu")
+    s = broker.subscribe(tcore.InterestExpr.parse("g", "t", *ATHLETE), tcore.StepCapacities(**PAPER_CAPS),
+                         initial_target=tau0, policy=tcore.PushPolicy.every(2))
+    broker.process_changeset(*changesets[0])  # pending: deferred by every(2)
+    bank = broker.bank
+    state = tcore.state.SubscriberState(
+        expr=s.expr, caps=s.caps, policy=s.policy, tau=store_np(s.tau), rho=store_np(s.rho),
+        lanes=s.lanes, since=s.since, canon_sig=s.canon_sig)
+
+    def carry(states):
+        return tcore.carry_broker(terms, bank.bank._rows, bank.bank._refs, bank.bank._free, states,
+                                  seq=broker._seq, last_cid=broker._last_cid, device="cpu",
+                                  virtual_rows=bank._vrows, virtual_refs=bank._vrefs,
+                                  virtual_free=bank._vfree, share_roots=[0])
+
+    with pytest.raises(ValueError, match="pending"):
+        carry([state])
+    broker.flush()
+    good = dataclasses.replace(state, since=s.since, tau=store_np(s.tau), rho=store_np(s.rho))
+    carried = carry([good])
+    assert carried.subs[0].lanes == s.lanes and carried.subs[0].canon_sig == s.canon_sig
+    assert carried._share_index == {s.canon_sig: carried.subs[0]}
+    with pytest.raises(ValueError, match="lanes"):
+        carry([dataclasses.replace(good, lanes=tuple(reversed(s.lanes)))])
+    with pytest.raises(ValueError, match="signature"):
+        carry([dataclasses.replace(good, canon_sig=None)])
 
 
 def test_broker_defaults_to_the_card():

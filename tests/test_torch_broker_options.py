@@ -1,6 +1,7 @@
 """repro_torch's Broker against repro's under its non-default options (CPU, exact).
 
-Each case gives both brokers the same constructor argument and drives them
+Each case gives both brokers the same constructor argument (beside
+``LATTICE_OFF``, the lattice and the delta chain off) and drives them
 through one script (``tests/test_torch_broker.py``'s runner); every step's
 stores, states, statistics and counters must be equal. This file runs the
 first two cases, ``test_torch_broker_hooks.py`` the other two (each case
@@ -26,7 +27,7 @@ from repro import core as jcore  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from test_torch_broker import A, EMPTY, assert_runs_equal, paper_script, run_script  # noqa: E402
+from test_torch_broker import A, EMPTY, LATTICE_OFF, assert_runs_equal, paper_script, run_script  # noqa: E402
 
 
 class CountingMatcher:
@@ -83,9 +84,9 @@ CASES = {
 def check_option(case):
     options, make_script = CASES[case]
     terms, script = make_script()[:2]
-    ref = run_script(jcore, terms, script, options=options(jcore))
+    ref = run_script(jcore, terms, script, options={**LATTICE_OFF, **options(jcore)})
     port_options = options(tcore)
-    port = run_script(tcore, terms, script, options=port_options)
+    port = run_script(tcore, terms, script, options={**LATTICE_OFF, **port_options})
     assert_runs_equal(port, ref)
     broker, counters = port[0], port[4]
     if case == "degraded":

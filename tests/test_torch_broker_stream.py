@@ -4,7 +4,8 @@ Football and Location interests under mixed policies (eager, every 2,
 priority lane, max staleness) over a DBpedia-like generator stream, ending
 in a flush that fires two frontiers in one stacked pass; every step's
 stores and statistics equal the reference
-``Broker(d, subsume_interests=False, delta_frontiers=False)``'s, and every
+``Broker(d, subsume_interests=False, delta_frontiers=False)``'s (the same
+options on both sides), and every
 fire equals the port's ``IrapEngine`` on the composed changeset. The
 script runner is ``tests/test_torch_broker.py``'s.
 """
@@ -16,7 +17,7 @@ torch.set_num_threads(1)
 from repro import core as jcore  # noqa: E402
 from repro.data import DBpediaLikeGenerator, GeneratorConfig  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
-from test_torch_broker import A, assert_runs_equal, check_against_engine, run_script  # noqa: E402
+from test_torch_broker import A, LATTICE_OFF, assert_runs_equal, check_against_engine, run_script  # noqa: E402
 
 GEN = dict(n_athletes=30, n_places=40, n_other=120, n_teams=6, seed=5,
            adds_per_changeset=80, removes_per_changeset=40)
@@ -57,12 +58,12 @@ def stream_script():
 @pytest.fixture(scope="module")
 def stream_reference():
     terms, script = stream_script()
-    return run_script(jcore, terms, script)
+    return run_script(jcore, terms, script, options=LATTICE_OFF)
 
 
 def test_stream_with_mixed_policies_equals_reference(stream_reference):
     terms, script = stream_script()
-    port = run_script(tcore, terms, script)
+    port = run_script(tcore, terms, script, options=LATTICE_OFF)
     assert_runs_equal(port, stream_reference)
     flush = port[3][-1]
     # two frontiers in one stacked pass: every(2) on changeset 5, stale on 1-5
@@ -71,4 +72,4 @@ def test_stream_with_mixed_policies_equals_reference(stream_reference):
 
 def test_stream_equals_port_engine():
     terms, script = stream_script()
-    assert check_against_engine(terms, script) > 10
+    assert check_against_engine(terms, script, options=LATTICE_OFF) > 10

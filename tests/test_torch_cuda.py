@@ -11,7 +11,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels import merge_join, ref, triple_match, triple_match_lanes, triple_match_words  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    lane_refine,
+    merge_join,
+    ref,
+    triple_match,
+    triple_match_lanes,
+    triple_match_words,
+    triple_match_words_segmented,
+)
 
 PAD = int(np.iinfo(np.int32).max)
 A = "rdf:type"
@@ -100,6 +108,50 @@ def test_triple_match_lanes_kernel_equals_plain(card, r, n, n_pat, nt, inactive)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("n,n_pat,dead,n_seg,bits", [(1, 7, (), 1, 2), (4095, 33, (0,), 2, 5), (4097, 32, (), 3, 3),
+                                                    (100_003, 160, (31, 100), 32, 32),
+                                                    (4097, 64, tuple(range(32, 64)), 2, 2), (9, 0, (), 3, 3)])
+def test_triple_match_words_segmented_kernel_equals_plain(card, n, n_pat, dead, n_seg, bits):
+    spo, pats = k1_inputs(n, n_pat, 5, n + n_pat)
+    pats = pats.reshape(-1, 3)
+    pats[list(dead)] = PAD
+    rng = np.random.default_rng(n_seg)
+    seg = rng.integers(-(1 << 31), (1 << 31) - 1, size=n).astype(np.int32)
+    if bits < 32:
+        seg &= (1 << bits) - 1  # bits above n_seg are ignored
+    args = [torch.as_tensor(x) for x in (spo, pats, seg)]
+    got = triple_match_words_segmented.triple_match_words_segmented_cuda(*(a.to(card) for a in args), n_seg)
+    want = ref.pattern_bitmask_words_segmented_ref(*args, n_seg)
+    assert tuple(got.shape) == (n_seg, n, max(1, -(-n_pat // 32)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n,n_pat,vp,n_virt,planes,shared", [(1, 7, 1, 1, 1, True), (4097, 64, 31, 20, 2, True),
+                                                             (4095, 64, 32, 32, 3, False),
+                                                             (100_003, 160, 33, 9, 2, True),
+                                                             (4097, 32, 64, 40, 4, False), (17, 40, 64, 0, 1, True),
+                                                             (4097, 300, 64, 30, 2, True)])
+def test_lane_refine_kernel_equals_plain(card, n, n_pat, vp, n_virt, planes, shared):
+    rng = np.random.default_rng(n + vp)
+    spo = rng.integers(0, 5, size=(n, 3) if shared else (planes, n, 3)).astype(np.int32)
+    spo[rng.random(spo.shape[:-1]) < 0.1] = PAD
+    pats = rng.integers(-1, 5, size=(n_pat, 3)).astype(np.int32)
+    pats[-1] = -1
+    t_spo, t_pats = torch.as_tensor(spo), torch.as_tensor(pats)
+    words = torch.stack([ref.pattern_bitmask_words_ref(t_spo if shared else t_spo[f], t_pats) for f in range(planes)])
+    parents = np.full(vp, -1, np.int32)
+    residual = np.full((vp, 3), PAD, np.int32)
+    for i, v in enumerate(rng.choice(vp, size=n_virt, replace=False)):
+        par = (0, n_pat - 1)[i] if i < 2 else int(rng.integers(0, n_pat))  # first and last word
+        parents[v] = par
+        residual[v] = [rng.integers(0, 5) if pats[par, k] == -1 and rng.random() < 0.7 else -1 for k in range(3)]
+    args = [t_spo, words if planes > 1 else words[0], torch.as_tensor(parents), torch.as_tensor(residual)]
+    if planes == 1 and not shared:
+        args[0] = t_spo[0]
+    got = lane_refine.lane_refine_cuda(*(a.to(card) for a in args))
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.lane_refine_ref(*args).numpy())
+
+
 def test_broker_on_the_card_equals_the_cpu(card):
     """Three subscribers, two of them deferred, through Broker on both devices."""
     d = tcore.Dictionary()
@@ -138,6 +190,53 @@ def test_broker_on_the_card_equals_the_cpu(card):
         assert gpu_counts[name] > 0
 
 
+@pytest.mark.parametrize("options", [{}, {"subsume_interests": False, "delta_frontiers": False}])
+def test_default_broker_with_virtual_lanes_on_the_card_equals_the_cpu(card, options):
+    """Lane groups, a contained interest on a virtual lane and a flush of two
+    frontiers: the default Broker (K6 and K7 on the card) and, for
+    comparison, the same with the lattice and the chain off."""
+    d = tcore.Dictionary()
+    tau0 = d.encode_triples([("dbr:M", A, "dbo:Athlete"), ("dbr:C", A, "dbo:Athlete"), ("dbr:C", "dbp:goals", "96")])
+    changesets = [
+        (d.encode_triples([("dbr:C", "dbp:goals", "96")]),
+         d.encode_triples([("dbr:C", "dbp:goals", "216"), ("dbr:R", A, "dbo:Athlete"), ("dbr:R", "dbp:goals", "3")])),
+        (d.encode_triples([("dbr:R", "dbp:goals", "3")]), d.encode_triples([("dbr:M", "dbp:goals", "10")])),
+        (d.encode_triples([("dbr:C", "dbp:goals", "216")]), d.encode_triples([("dbr:C", "dbp:goals", "217")])),
+    ]
+    interests = [
+        ([("?a", "dbp:goals", "?g")], None),
+        ([("?x", "dbp:goals", "?y")], None),  # a renaming: joins the first's lane group
+        ([("dbr:C", "dbp:goals", "?g")], tcore.PushPolicy.every(2)),  # contained: a virtual lane
+        ([("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?g")], tcore.PushPolicy.max_staleness(1e9)),
+    ]
+    runs = {}
+    for device in ("cpu", card):
+        kernels.reset_launch_counts()
+        broker = tcore.Broker(d, device=device, **options)
+        for bgp, pol in interests:
+            broker.subscribe(tcore.InterestExpr.parse("s", "t", bgp),
+                             tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32),
+                             initial_target=tau0, policy=pol)
+        outs = [broker.process_changeset(*c) for c in changesets] + [broker.flush()]
+        stores = [None if o is None else getattr(o, f) for call in outs for o in call
+                  for f in ("r", "r_i", "r_prime", "a", "a_i")]
+        stores += [st for s in broker.subs for st in (s.tau, s.rho)]
+        runs[str(device)] = ([None if st is None else tcore.to_numpy(st) for st in stores], kernels.launch_counts(),
+                             [(st.distinct_interests, st.fanout_copies, st.rows_matched) for st in broker.stats])
+    (cpu_sets, cpu_counts, cpu_stats), (gpu_sets, gpu_counts, gpu_stats) = runs["cpu"], runs[str(card)]
+    assert len(cpu_sets) == len(gpu_sets) and cpu_stats == gpu_stats
+    for a, b in zip(cpu_sets, gpu_sets):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert all(n == 0 for n in cpu_counts.values())
+    chain = ("triple_match_words_segmented", "lane_refine")
+    for name in ("triple_match_words", "triple_match_lanes", "merge_probe") + (chain if not options else ()):
+        assert gpu_counts[name] > 0, name
+    if options:
+        assert all(gpu_counts[name] == 0 for name in chain)
+
+
 def test_paper_example_on_the_card_equals_the_cpu(card):
     runs = {}
     for device in ("cpu", card):
@@ -160,5 +259,6 @@ def test_paper_example_on_the_card_equals_the_cpu(card):
     (cpu_sets, cpu_counts), (gpu_sets, gpu_counts) = runs["cpu"], runs[str(card)]
     for a, b in zip(cpu_sets, gpu_sets):
         np.testing.assert_array_equal(a, b)
-    assert cpu_counts == {"triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0}
+    assert cpu_counts == {"triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0,
+                          "triple_match_words_segmented": 0, "lane_refine": 0}
     assert gpu_counts["triple_match"] > 0 and gpu_counts["merge_probe"] > 0

@@ -171,8 +171,12 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.pattern_bitmask_words(spo, torch.full((40, 3), -1, dtype=torch.int32))
     ops.pattern_lane_bits_batched(spo[None], torch.full((32, 3), -1, dtype=torch.int32),
                                   torch.zeros((1, 2), dtype=torch.int32))
+    words = ops.pattern_bitmask_words_segmented(spo, torch.full((40, 3), -1, dtype=torch.int32),
+                                                torch.ones(8, dtype=torch.int32), 2)
+    ops.lane_refine(spo, words, torch.zeros(1, dtype=torch.int32), torch.full((1, 3), -1, dtype=torch.int32))
     assert kernels.launch_counts() == {
         "triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0,
+        "triple_match_words_segmented": 0, "lane_refine": 0,
     }
 
 
