@@ -9,7 +9,11 @@ Phases, each fatal on failure:
    ``nvcc`` for ``sm_90a`` from ``src/repro_torch/csrc``, in parallel.
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at edge cases (PAD rows, wildcard-only and 32-pattern banks,
-   duplicate, absent and skewed queries, both sides; bank widths of 1, 2
+   duplicate, absent and skewed queries, both sides; each tile path of the
+   probe (sorted tiles, all-equal tiles, windows of W_max - 1, W_max and
+   W_max + 1 rows, unsorted and mixed tiles, INT32_MIN columns and mixed
+   prefix depths, a ragged last tile, stores of 0 and 1 rows) on the left,
+   the right and in range mode, with its tile counts; bank widths of 1, 2
    and 5 words, all-tombstone words, inactive members; 1, 2 and 32
    segments with bits above them; 1 to 64 virtual slots with dead ones).
 3. small: the paper's running example, and a small id-space stream with the
@@ -34,7 +38,10 @@ Phases, each fatal on failure:
    ways, evaluated as 10 lane groups over 3 changesets; every member equals
    its group and ``IrapEngine`` on its own expression.
 7. timing: each kernel at the full-scale shapes, against its plain version
-   and the card's bound; one JSON line ``{"kernels": [...]}``. Then one
+   and the card's bound (bytes at 3.35 TB/s, int32 operations at the SMs'
+   int32 lanes and clock), the probe's tiles per path at each shape, the
+   probe once more with the prefix queries shuffled and in range mode
+   against two single-side launches; one JSON line ``{"kernels": [...]}``. Then one
    more changeset per interest, and one more broker fire, under
    ``torch.profiler``: the device's busy share and where its time goes.
 
@@ -59,7 +66,13 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12  # H100 SXM rate outside the tensor cores (fp32 table entry)
+# The kernels' operations are int32 (compares, ands, shifts): their peak is
+# the SMs' int32 lanes at the SM clock, 64 lanes an SM on Hopper (4
+# partitions x 16 INT32 units, NVIDIA H100 architecture white paper). The
+# rate is set in phase_build from the SM count and `nvidia-smi
+# --query-gpu=clocks.max.sm`: 132 x 64 x 1.98 GHz = 1.67e13 on an H100 SXM.
+INT32_LANES_PER_SM = 64
+INT_OPS_PER_S = 132 * INT32_LANES_PER_SM * 1.98e9
 
 A = "rdf:type"
 FOOTBALL = (
@@ -349,9 +362,11 @@ def plain_probe():
     """
     from repro_torch.kernels import ops, ref
 
-    def merge_probe_plain(store, queries, side="left"):
+    def merge_probe_plain(store, queries, side="left", hi_queries=None):
         if side == "left":
             return ref.merge_probe_ref(store, queries)
+        if side == "range":
+            return ref.merge_probe_range_ref(store, queries, hi_queries)
         return ref.merge_probe_right_ref(store, queries), None
 
     saved = ops.merge_probe
@@ -409,6 +424,16 @@ def phase_build():
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     card = out.stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    import torch
+
+    global INT_OPS_PER_S
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * INT32_LANES_PER_SM * mhz * 1e6
+    log(f"int32 peak: {sms} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz = {INT_OPS_PER_S:.3e} operations/s")
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -462,10 +487,96 @@ def phase_kernels(device):
         check(none is None and torch.equal(r_idx, ref.merge_probe_right_ref(st, qu)),
               f"merge_probe right != plain ({s_rows}, {q_rows})")
         cases += 2
+    cases += probe_kernel_cases(device, rng)
     cases += bank_kernel_cases(device, rng)
     cases += chain_kernel_cases(device, rng)
     torch.cuda.synchronize()
     log(f"kernels: {cases} kernel-vs-plain cases bit-identical on the card")
+
+
+PROBE_CASES = ("sorted", "all_equal", "window-1", "window", "window+1", "oversized", "unsorted", "mixed",
+               "int32_min", "s0", "s1")
+
+
+def probe_case(name: str, rng, tile: int, w_max: int):
+    """(store, lo queries, hi queries, the tile paths the left side takes)
+    for K2/K3's tile paths. The hi queries keep a prefix of each lo query's
+    columns (mixed depths for the unsorted case) and PAD past it, as
+    prefix_range builds them."""
+    pad = np.iinfo(np.int32).max
+    n = 20_000
+    rows = np.stack([np.arange(n) // 100, np.arange(n) % 100, np.zeros(n, np.int64)], 1).astype(np.int32)
+    store = np.full((n + 4096, 3), pad, np.int32)
+    store[:n] = rows
+    paths = {"window"}
+    if name == "sorted":  # a PAD tail, Q not a multiple of the tile
+        q = np.concatenate([store[np.sort(rng.integers(0, 3000, 3 * tile + 77))], np.full((tile + 5, 3), pad, np.int32)])
+        paths = {"window", "oversized"}  # the tile across the PAD boundary spans the store's rest
+    elif name == "all_equal":
+        q = np.repeat(store[n + 7: n + 8], 2 * tile + 3, axis=0)
+    elif name.startswith("window"):  # left(first) .. left(last) is w rows, and one more is read
+        w = w_max + {"window-1": -1, "window": 0, "window+1": 1}[name]
+        q = store[np.sort(np.concatenate([[5000, 5000 + w - 1], rng.integers(5000, 5000 + w, tile - 2)]))]
+        paths = {"window" if w <= w_max else "oversized"}
+    elif name == "oversized":
+        q = store[np.sort(rng.integers(0, n, 4 * tile))]
+        q[::3, 2] = 1  # absent rows
+        q = q[np.lexsort((q[:, 2], q[:, 1], q[:, 0]))]
+        paths = {"oversized"}
+    elif name == "unsorted":
+        q = rng.integers(-2, 210, size=(3 * tile + 9, 3)).astype(np.int32)
+        q[::11] = pad
+        paths = {"unsorted"}
+    elif name == "mixed":  # sorted tiles with a shuffled one between them
+        q = store[np.sort(rng.integers(0, 1500, 3 * tile))]
+        q[tile: 2 * tile] = q[tile: 2 * tile][rng.permutation(tile)]
+        paths = {"window", "unsorted"}
+    elif name == "int32_min":  # a subject prefix: the window holds the subjects' rows
+        q = store[np.sort(rng.integers(0, 1500, 2 * tile))]
+        q[:, 1:] = np.iinfo(np.int32).min
+    elif name == "s0":
+        store, q = store[:0], rng.integers(0, 5, size=(9, 3)).astype(np.int32)
+        paths = {"unsorted"}
+    elif name == "s1":
+        store, q = store[:1], np.concatenate([store[:1], rng.integers(-1, 3, size=(9, 3)).astype(np.int32)])
+        paths = {"unsorted"}
+    else:
+        raise KeyError(name)
+    depth = rng.integers(1, 4, q.shape[0])[:, None] if name == "unsorted" else (1 if name == "int32_min" else 3)
+    hi = np.where(np.arange(3)[None, :] < depth, q, pad).astype(np.int32)
+    return store, q.astype(np.int32), hi, paths
+
+
+def probe_kernel_cases(device, rng) -> int:
+    """K2/K3 at each tile path of the kernel, left, right and range, bit for
+    bit against the plain versions; the tile counts name the paths taken."""
+    import torch
+    from repro_torch.kernels import merge_join, ref
+
+    cases = 0
+    for name in PROBE_CASES:
+        store, lo, hi, paths = probe_case(name, rng, merge_join.TILE, merge_join.WINDOW_ROWS)
+        st, lq, hq = (torch.as_tensor(a, device=device) for a in (store, lo, hi))
+        n_tiles = -(-lo.shape[0] // merge_join.TILE)
+        for side in ("left", "right", "range"):
+            counts = torch.zeros(3, dtype=torch.int32, device=device)
+            if side == "range":
+                got = merge_join.merge_probe_range_cuda(st, lq, hq, tile_counts=counts)
+                want = ref.merge_probe_range_ref(st, lq, hq)
+            elif side == "left":
+                got = merge_join.merge_probe_cuda(st, lq, "left", tile_counts=counts)
+                want = ref.merge_probe_ref(st, lq)
+            else:
+                got = merge_join.merge_probe_cuda(st, lq, "right", tile_counts=counts)[:1]
+                want = (ref.merge_probe_right_ref(st, lq),)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"merge_probe {side} != plain ({name})")
+            c = counts.tolist()
+            check(sum(c) == n_tiles, f"merge_probe {side} ({name}): tile counts {c} for {n_tiles} tiles")
+            if side == "left":
+                took = {p for p, k in zip(merge_join.TILE_PATHS, c) if k}
+                check(took == paths, f"merge_probe left ({name}): paths {took}, expected {paths}")
+            cases += 1
+    return cases
 
 
 def bank_kernel_cases(device, rng) -> int:
@@ -1330,34 +1441,63 @@ def phase_timing(tcore, device, subs, changesets, launches):
     lo_q = torch.full((caps.dedup_candidates, 3), tcore.PAD, dtype=torch.int32, device=device)
     lo_q[: subjects.shape[0], 0] = subjects
     lo_q[: subjects.shape[0], 1:] = int(np.iinfo(np.int32).min)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    shuffled = lo_q[torch.randperm(lo_q.shape[0], device=device, generator=gen)]
     shapes = {
         # difference(τ, r'): every τ row probed into the pulled set
-        "member": (r_prime, tau, "left"),
+        "member": (r_prime, tau),
         # prefix_range over τ by subject: the evaluator's candidate probes
-        "prefix": (tau, lo_q, "left"),
+        "prefix": (tau, lo_q),
+        # the same queries in random order: the unsorted path
+        "prefix shuffled": (tau, shuffled),
     }
     k2_rows = {}
-    for label, (store, queries, side) in shapes.items():
-        idx, found = merge_join.merge_probe_cuda(store, queries, side)
+    for label, (store, queries) in shapes.items():
+        counts = torch.zeros(3, dtype=torch.int32, device=device)
+        idx, found = merge_join.merge_probe_cuda(store, queries, "left", tile_counts=counts)
         w_idx, w_found = ref.merge_probe_ref(store, queries)
         err = max(int((idx.long() - w_idx.long()).abs().max()),
                   int((found.long() - w_found.long()).abs().max()))
         check(err == 0, f"merge_probe at the {label} shape")
         c, q = store.shape[0], queries.shape[0]
-        touched, visits = search_footprint(store, queries, side)
+        rows = answer_rows(c, w_idx)
         row = {
-            "ms": time_cuda(lambda: merge_join.merge_probe_cuda(store, queries, side), 30, flush),
+            "ms": time_cuda(lambda: merge_join.merge_probe_cuda(store, queries, "left"), 30, flush),
             "plain_ms": time_cuda(lambda: ref.merge_probe_ref(store, queries), 5, flush),
             "max_abs_err": err,
         }
-        # bytes: the store rows this data's searches must read, each once, the
-        # queries read once, idx and found written once; operations: per row
-        # visit, a 3-column compare and the bound update
-        row["bound_ms"], row["bound_by"] = bound(touched * 12 + q * 12 + q * 5, visits * 8)
+        # bytes: the store rows any correct answer reads (idx - 1 and idx of
+        # each query, each row once), the queries read once, idx and found
+        # written once; operations: per query, two 3-column compares of ~8
+        # int32 operations (with the row at idx - 1 and at idx)
+        row["bound_ms"], row["bound_by"] = bound(rows * 12 + q * 12 + q * 5, q * 16)
         k2_rows[label] = row
-        log(f"timing: merge_probe {label} S={c:,} Q={q:,} (rows touched {touched:,}, visits {visits:,}): "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        log(f"timing: merge_probe {label} S={c:,} Q={q:,} (answer rows {rows:,}; tiles "
+            + ", ".join(f"{p} {n:,}" for p, n in zip(merge_join.TILE_PATHS, counts.tolist()))
+            + f"): {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    # range mode at the prefix shape (prefix_range, depth 1) against the two
+    # single-side launches it replaces
+    hi_q = lo_q.clone()
+    hi_q[:, 1:] = tcore.PAD
+    lo_r = lo_q.clone()
+    lo_r[:, 1:] = int(np.iinfo(np.int32).min)
+    counts = torch.zeros(3, dtype=torch.int32, device=device)
+    start, end = merge_join.merge_probe_range_cuda(tau, lo_r, hi_q, tile_counts=counts)
+    w_start, w_end = ref.merge_probe_range_ref(tau, lo_r, hi_q)
+    check(torch.equal(start, w_start) and torch.equal(end, w_end), "merge_probe range at the prefix shape")
+    q = lo_r.shape[0]
+    rows = answer_rows(tau.shape[0], w_start, w_end)
+    range_ms = time_cuda(lambda: merge_join.merge_probe_range_cuda(tau, lo_r, hi_q), 30, flush)
+    two_ms = time_cuda(lambda: (merge_join.merge_probe_cuda(tau, lo_r, "left"),
+                                merge_join.merge_probe_cuda(tau, hi_q, "right")), 30, flush)
+    r_bound, r_by = bound(rows * 12 + q * 24 + q * 8, q * 32)
+    log(f"timing: merge_probe range (prefix shape) S={tau.shape[0]:,} Q={q:,} (answer rows {rows:,}; tiles "
+        + ", ".join(f"{p} {n:,}" for p, n in zip(merge_join.TILE_PATHS, counts.tolist()))
+        + f"): one range launch {range_ms:.4f} ms, left + right launches {two_ms:.4f} ms, "
+        f"bound {r_bound:.4f} ms ({r_by})")
     k2 = {
         "name": "merge_probe", "route": "cuda", "source": "src/repro_torch/csrc/merge_probe.cu",
         "replaces": "src/repro/kernels/merge_join.py:81", "launches": launches["merge_probe"],
@@ -1365,7 +1505,7 @@ def phase_timing(tcore, device, subs, changesets, launches):
         "library_ms": None,  # no single PyTorch call searches rows lexicographically
     }
     # K3 (the windowed probe) is the same CUDA kernel and launch counter; its
-    # row reads the prefix_range shape
+    # row reads the prefix_range shape, left side
     k3 = {
         "name": "merge_probe_windowed", "route": "cuda", "source": "src/repro_torch/csrc/merge_probe.cu",
         "replaces": "src/repro/kernels/merge_join.py:131", "launches": launches["merge_probe"],
@@ -1553,39 +1693,20 @@ def phase_profile(subs, stream, broker, broker_stream):
     log(f"  broker fire: {st.n_evaluated} subscribers fired, {st.n_cohort_passes} cohort passes")
 
 
-def search_footprint(store, queries, side: str):
-    """(distinct store rows, row visits) that the binary searches of these
-    queries need: the midpoints they visit at every level, and for the left
-    side the row at each result, which it reads to set ``found``."""
+def answer_rows(c: int, *positions) -> int:
+    """Distinct store rows that any correct probe must read for these
+    answers: the rows at p - 1 and p of each answer p (those inside
+    [0, c)), each row once."""
     import torch
-    from repro_torch.core.triples import lex_less
 
-    c = store.shape[0]
-    lo = torch.zeros(queries.shape[0], dtype=torch.int64, device=queries.device)
-    hi = torch.full_like(lo, c)
-    rows, visits = [], 0
-    while True:
-        active = lo < hi
-        n_active = int(active.sum())
-        if n_active == 0:
-            break
-        mid = (lo + hi) // 2
-        rows.append(torch.unique(mid[active]))
-        visits += n_active
-        row = store[mid.clamp(max=c - 1)]
-        go_right = lex_less(row, queries) if side == "left" else ~lex_less(queries, row)
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    if side == "left":
-        rows.append(torch.unique(lo[lo < c]))
-        visits += queries.shape[0]
-    touched = int(torch.unique(torch.cat(rows)).shape[0]) if rows else 0
-    return touched, visits
+    pos = torch.cat([p.long() for p in positions])
+    pos = torch.cat([pos - 1, pos])
+    return int(torch.unique(pos[(pos >= 0) & (pos < c)]).shape[0])
 
 
 def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -160,15 +160,13 @@ def prefix_range(store: TripleStore, prefix: torch.Tensor, depth: torch.Tensor) 
 
     ``prefix``: int32[Q, 3] (columns past ``depth`` ignored); ``depth``:
     int32[Q] in {1, 2, 3}. Works on any store sorted in the column order the
-    prefix refers to.
+    prefix refers to. Both bounds come from one probe (one launch on the card).
     """
     col = torch.arange(3, dtype=torch.int32, device=prefix.device)[None, :]
     inside = col < depth[:, None]
     lo_q = torch.where(inside, prefix, INT32_MIN).to(torch.int32)
     hi_q = torch.where(inside, prefix, PAD).to(torch.int32)
-    start = searchsorted_rows(store.spo, lo_q, side="left")
-    end = searchsorted_rows(store.spo, hi_q, side="right")
-    return start, end
+    return kops.merge_probe(store.spo, lo_q, side="range", hi_queries=hi_q)
 
 
 # ---------------------------------------------------------------------------

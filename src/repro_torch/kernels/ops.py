@@ -151,17 +151,26 @@ def lane_bits_batched(
 
 
 def merge_probe(
-    store: torch.Tensor, queries: torch.Tensor, side: str = "left"
+    store: torch.Tensor, queries: torch.Tensor, side: str = "left", hi_queries: torch.Tensor | None = None
 ) -> Tuple[torch.Tensor, torch.Tensor | None]:
-    """(idx, found) of each query row in a lex-sorted store, in query order.
+    """Probe each query row in a lex-sorted store, in query order.
 
-    ``idx`` is the searchsorted position on ``side``; ``found`` (bool, left
-    side only, else None) marks rows equal to the store row at ``idx``.
+    ``side="left"``: (idx, found), the searchsorted-left position and
+    whether the store row there equals the query (bool). ``"right"``: (idx,
+    None), the searchsorted-right position. ``"range"``: (start, end), the
+    left position of each ``queries`` row and the right position of the
+    ``hi_queries`` row beside it, in one launch on the card.
     """
+    if side not in ("left", "right", "range"):
+        raise ValueError(f"side must be 'left', 'right' or 'range', got {side!r}")
+    if (side == "range") != (hi_queries is not None):
+        raise ValueError("hi_queries is given with side='range' and only then")
     if _on_card(queries):
+        if side == "range":
+            return merge_join.merge_probe_range_cuda(store, queries, hi_queries)
         return merge_join.merge_probe_cuda(store, queries, side)
     if side == "left":
         return ref.merge_probe_ref(store, queries)
     if side == "right":
         return ref.merge_probe_right_ref(store, queries), None
-    raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    return ref.merge_probe_range_ref(store, queries, hi_queries)

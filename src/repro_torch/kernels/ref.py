@@ -203,3 +203,11 @@ def merge_probe_ref(store: torch.Tensor, queries: torch.Tensor) -> Tuple[torch.T
 def merge_probe_right_ref(store: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """int32[Q] lexicographic searchsorted-right (the upper bound of ``prefix_range``)."""
     return _search(store, queries, "right")
+
+
+def merge_probe_range_ref(
+    store: torch.Tensor, lo_queries: torch.Tensor, hi_queries: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(start, end), int32[Q] each: searchsorted-left of ``lo_queries`` and
+    searchsorted-right of ``hi_queries`` (``prefix_range``'s bounds)."""
+    return _search(store, lo_queries, "left"), _search(store, hi_queries, "right")

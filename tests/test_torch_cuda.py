@@ -74,6 +74,108 @@ def test_merge_probe_kernel_equals_plain(card, side, s_rows, q_rows, vocab):
     np.testing.assert_array_equal(idx.cpu().numpy(), w_idx.numpy())
 
 
+def k2_path_case(name, rng):
+    """(store, lo queries, hi queries, the tile paths the left side takes)
+    for one of the kernel's tile paths; hi queries are the lo ones with PAD
+    in the columns past a prefix depth, as prefix_range builds them."""
+    tile, w_max = merge_join.TILE, merge_join.WINDOW_ROWS
+    n = 20_000
+    rows = np.stack([np.arange(n) // 100, np.arange(n) % 100, np.zeros(n, int)], 1).astype(np.int32)
+    store = np.full((n + 4096, 3), PAD, np.int32)
+    store[:n] = rows
+    paths = {"window"}
+    if name == "sorted":  # a PAD tail, Q not a multiple of the tile
+        q = np.sort(rng.integers(0, 3000, 3 * tile + 77))
+        q = np.concatenate([store[q], np.full((tile + 5, 3), PAD, np.int32)])
+        paths = {"window", "oversized"}  # the tile across the PAD boundary spans the store's rest
+    elif name == "all_equal":
+        q = np.repeat(store[n + 7: n + 8], 2 * tile + 3, axis=0)
+    elif name.startswith("window_"):  # the rows [left(first), left(last)] and one more
+        w = w_max + int(name.split("_")[1])
+        q = store[np.sort(np.concatenate([[5000, 5000 + w - 1], rng.integers(5000, 5000 + w, tile - 2)]))]
+        paths = {"window" if w <= w_max else "oversized"}
+    elif name == "oversized":
+        q = store[np.sort(rng.integers(0, n, 4 * tile))]
+        q[::3, 2] = 1  # absent rows
+        q = q[np.lexsort((q[:, 2], q[:, 1], q[:, 0]))]
+        paths = {"oversized"}
+    elif name == "unsorted":
+        q = rng.integers(-2, 210, size=(3 * tile + 9, 3)).astype(np.int32)
+        q[::11] = PAD
+        paths = {"unsorted"}
+    elif name == "mixed":  # sorted tiles with a shuffled one between them
+        q = store[np.sort(rng.integers(0, 1500, 3 * tile))]
+        q[tile: 2 * tile] = q[tile: 2 * tile][rng.permutation(tile)]
+        paths = {"window", "unsorted"}
+    elif name == "int32_min":  # a subject prefix: the window holds the subjects' rows
+        q = store[np.sort(rng.integers(0, 1500, 2 * tile))]
+        q[:, 1:] = np.iinfo(np.int32).min
+    elif name == "s0":
+        store, q = store[:0], rng.integers(0, 5, size=(9, 3)).astype(np.int32)
+        paths = {"unsorted"}
+    elif name == "s1":
+        store, q = store[:1], np.concatenate([store[:1], rng.integers(-1, 3, size=(9, 3)).astype(np.int32)])
+        paths = {"unsorted"}
+    else:
+        raise KeyError(name)
+    depth = rng.integers(1, 4, q.shape[0])[:, None] if name == "unsorted" else 3 - (name == "int32_min") * 2
+    hi = np.where(np.arange(3)[None, :] < depth, q, PAD).astype(np.int32)
+    return store, q.astype(np.int32), hi, paths
+
+
+K2_PATH_CASES = ["sorted", "all_equal", "window_-1", "window_0", "window_1", "oversized", "unsorted", "mixed",
+                 "int32_min", "s0", "s1"]
+
+
+@pytest.mark.parametrize("side", ["left", "right", "range"])
+@pytest.mark.parametrize("name", K2_PATH_CASES)
+def test_merge_probe_tile_paths_equal_plain(card, name, side):
+    store, lo, hi, paths = k2_path_case(name, np.random.default_rng(len(name)))
+    t_store, t_lo, t_hi = (torch.as_tensor(a) for a in (store, lo, hi))
+    counts = torch.zeros(3, dtype=torch.int32, device=card)
+    if side == "range":
+        start, end = merge_join.merge_probe_range_cuda(t_store.to(card), t_lo.to(card), t_hi.to(card),
+                                                       tile_counts=counts)
+        w_start, w_end = ref.merge_probe_range_ref(t_store, t_lo, t_hi)
+        np.testing.assert_array_equal(start.cpu().numpy(), w_start.numpy())
+        np.testing.assert_array_equal(end.cpu().numpy(), w_end.numpy())
+    else:
+        idx, found = merge_join.merge_probe_cuda(t_store.to(card), t_lo.to(card), side, tile_counts=counts)
+        if side == "left":
+            w_idx, w_found = ref.merge_probe_ref(t_store, t_lo)
+            np.testing.assert_array_equal(found.cpu().numpy(), w_found.numpy())
+        else:
+            w_idx = ref.merge_probe_right_ref(t_store, t_lo)
+        np.testing.assert_array_equal(idx.cpu().numpy(), w_idx.numpy())
+    counts = counts.cpu().tolist()
+    assert sum(counts) == -(-lo.shape[0] // merge_join.TILE)
+    if side == "left":
+        assert {p for p, c in zip(merge_join.TILE_PATHS, counts) if c} == paths, counts
+
+
+def test_merge_probe_refuses_rows_that_are_not_contiguous(card):
+    store = torch.zeros((8, 3), dtype=torch.int32, device=card)
+    wide = torch.zeros((8, 6), dtype=torch.int32, device=card)
+    for bad in (store[::2], wide[:, :3]):
+        with pytest.raises(ValueError):
+            merge_join.merge_probe_cuda(store, bad)
+        with pytest.raises(ValueError):
+            merge_join.merge_probe_range_cuda(bad, store, store)
+
+
+def test_prefix_range_on_the_card_is_one_launch(card):
+    store, lo, _, _ = k2_path_case("sorted", np.random.default_rng(3))
+    st = tcore.TripleStore(spo=torch.as_tensor(store, device=card), n=torch.tensor(20_000, device=card))
+    depth = torch.full((lo.shape[0],), 2, dtype=torch.int32, device=card)
+    kernels.reset_launch_counts()
+    start, end = tcore.prefix_range(st, torch.as_tensor(lo, device=card), depth)
+    assert kernels.launch_counts()["merge_probe"] == 1
+    cpu = tcore.TripleStore(spo=torch.as_tensor(store), n=torch.tensor(20_000))
+    w_start, w_end = tcore.prefix_range(cpu, torch.as_tensor(lo), depth.cpu())
+    np.testing.assert_array_equal(start.cpu().numpy(), w_start.numpy())
+    np.testing.assert_array_equal(end.cpu().numpy(), w_end.numpy())
+
+
 @pytest.mark.parametrize("n,n_pat,dead", [(1, 7, ()), (4095, 32, (3,)), (4097, 45, (0, 40)),
                                            (100_003, 160, (31, 63, 100)), (4097, 64, tuple(range(32, 63))),
                                            (9, 0, ())])

@@ -3,8 +3,9 @@
 K1 (triple_match) against ``triple_match_pallas`` in interpret mode and the
 ``pattern_bitmask_ref`` oracle; K2/K3 (merge_probe) left and right against
 ``merge_probe_ref``, ``ops.merge_probe(use_kernel=True)`` and
-``searchsorted_rows``. The CUDA kernels themselves are held against these
-plain versions on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+``searchsorted_rows``, and its range mode against ``triples.prefix_range``.
+The CUDA kernels themselves are held against these plain versions on the
+card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.triple_match import BLOCK_ROWS, triple_match_pallas  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.core import triples as tcore_triples  # noqa: E402
 from repro_torch.kernels import build, merge_join, ops, ref, triple_match  # noqa: E402
 
 PAD = int(np.iinfo(np.int32).max)
@@ -158,6 +160,78 @@ def test_merge_probe_pad_queries_follow_the_oracle():
     np.testing.assert_array_equal(found.numpy(), np.asarray(o_found))
 
 
+def prefix_case(name):
+    """(store, prefix, depth): prefixes of mixed depths over a store with a
+    PAD tail, present, absent and PAD prefixes, INT32_MIN columns."""
+    rng = np.random.default_rng(len(name) + 11)
+    rows = rng.integers(0, 12, size=(2600, 3))
+    rows[::9, 1] = np.iinfo(np.int32).min  # INT32_MIN columns in the store
+    store = sorted_store(rows, 4096)
+    valid = int((store[:, 0] != PAD).sum())
+    prefix = np.concatenate([store[rng.integers(0, valid, 1500)], rng.integers(-1, 14, size=(540, 3)),
+                             np.full((8, 3), PAD)]).astype(np.int32)
+    prefix[::13, 2] = np.iinfo(np.int32).min
+    if name == "sorted_subjects":
+        prefix = prefix[np.lexsort((prefix[:, 2], prefix[:, 1], prefix[:, 0]))]
+        depth = np.ones(prefix.shape[0], np.int32)
+    else:
+        depth = rng.integers(1, 4, prefix.shape[0]).astype(np.int32)
+    return store, prefix, depth
+
+
+@pytest.mark.parametrize("name", ["mixed_depths", "sorted_subjects"])
+def test_merge_probe_range_equals_reference_prefix_range(name):
+    store, prefix, depth = prefix_case(name)
+    j_start, j_end = jt.prefix_range(jt.TripleStore(spo=jnp.asarray(store), n=jnp.int32((store[:, 0] != PAD).sum())),
+                                     jnp.asarray(prefix), jnp.asarray(depth))
+    col = np.arange(3)[None, :]
+    lo_q = np.where(col < depth[:, None], prefix, np.iinfo(np.int32).min).astype(np.int32)
+    hi_q = np.where(col < depth[:, None], prefix, PAD).astype(np.int32)
+    ts, tlo, thi = (torch.as_tensor(a) for a in (store, lo_q, hi_q))
+    start, end = ref.merge_probe_range_ref(ts, tlo, thi)
+    o_start, o_end = ops.merge_probe(ts, tlo, side="range", hi_queries=thi)
+    assert start.dtype == end.dtype == torch.int32
+    for got in (start, o_start):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j_start))
+    for got in (end, o_end):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j_end))
+    assert (end >= start).all() and (end > start).any()
+    t_start, t_end = tcore_triples.prefix_range(
+        tcore_triples.TripleStore(spo=ts, n=torch.tensor(int((store[:, 0] != PAD).sum()), dtype=torch.int32)),
+        torch.as_tensor(prefix), torch.as_tensor(depth))
+    np.testing.assert_array_equal(t_start.numpy(), np.asarray(j_start))
+    np.testing.assert_array_equal(t_end.numpy(), np.asarray(j_end))
+
+
+def test_prefix_range_is_one_probe(monkeypatch):
+    """The port's prefix_range asks the probe once, in range mode (one
+    launch on the card), where the reference searches twice."""
+    calls = []
+    real = ops.merge_probe
+    monkeypatch.setattr(ops, "merge_probe", lambda *a, **k: calls.append(k.get("side")) or real(*a, **k))
+    store, prefix, depth = prefix_case("mixed_depths")
+    st = tcore_triples.TripleStore(spo=torch.as_tensor(store), n=torch.tensor(2600, dtype=torch.int32))
+    tcore_triples.prefix_range(st, torch.as_tensor(prefix), torch.as_tensor(depth))
+    assert calls == ["range"]
+
+
+def test_merge_probe_range_takes_hi_queries_only_in_range_mode():
+    spo = torch.zeros((8, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.merge_probe(spo, spo, side="range")
+    with pytest.raises(ValueError):
+        ops.merge_probe(spo, spo, side="left", hi_queries=spo)
+    with pytest.raises(ValueError):
+        ops.merge_probe(spo, spo, side="middle")
+
+
+def test_merge_probe_tile_constants_match_the_source():
+    src = (build.CSRC_DIR / build.SOURCES["merge_probe"]).read_text()
+    assert f"constexpr int kTile = {merge_join.TILE};" in src
+    assert f"constexpr int kWindowRows = {merge_join.WINDOW_ROWS};" in src
+    assert len(merge_join.TILE_PATHS) == 3
+
+
 # ---------------------------------------------------------------------------
 # dispatch, counters and the build, without a card
 # ---------------------------------------------------------------------------
@@ -186,6 +260,8 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices():
         triple_match.triple_match_cuda(spo, spo[:1])
     with pytest.raises(ValueError):
         merge_join.merge_probe_cuda(spo, spo)
+    with pytest.raises(ValueError):
+        merge_join.merge_probe_range_cuda(spo, spo, spo)
     meta = torch.zeros((8, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         ops.pattern_bitmask(meta, meta[:1])
