@@ -15,7 +15,12 @@ Phases, each fatal on failure:
    prefix depths, a ragged last tile, stores of 0 and 1 rows) on the left,
    the right and in range mode, with its tile counts; bank widths of 1, 2
    and 5 words, all-tombstone words, inactive members; 1, 2 and 32
-   segments with bits above them; 1 to 64 virtual slots with dead ones).
+   segments with bits above them; 1 to 64 virtual slots with dead ones; K1's
+   row stream at N % 4 of 1-3, bases offset by 1-3 rows, P of 0, 1 and 32,
+   all-PAD rows; K7's slot masks with two and three constants a slot, 600
+   distinct constants at one position, Vp of 0 to 600 over several chunks of
+   output words, W = 10, parents at and beyond 32 W, F = 1, 2 and 32 over
+   shared and per-plane rows, N below one block).
 3. small: the paper's running example, and a small id-space stream with the
    Football and Location interests, through ``IrapEngine`` on the card; every
    named set equals the pure-Python oracle's; then both through the default
@@ -41,7 +46,8 @@ Phases, each fatal on failure:
    and the card's bound (bytes at 3.35 TB/s, int32 operations at the SMs'
    int32 lanes and clock), the probe's tiles per path at each shape, the
    probe once more with the prefix queries shuffled and in range mode
-   against two single-side launches; one JSON line ``{"kernels": [...]}``. Then one
+   against two single-side launches; the launch floor (a one-element fill
+   timed the same way); one JSON line ``{"kernels": [...]}``. Then one
    more changeset per interest, and one more broker fire, under
    ``torch.profiler``: the device's busy share and where its time goes.
 
@@ -468,6 +474,24 @@ def phase_kernels(device):
             valid = torch.as_tensor(spo[:, 0] != pad, device=device)
             check(bool((got[valid] < 0).all()), "bit 31 set on every valid row")
         cases += 1
+    # the row stream's edges: N % 4 of 1, 2 and 3 (scalar tail), bases offset
+    # by 1, 2 and 3 rows (scalar head, unaligned stores), P of 0, 1 and 32,
+    # all-PAD rows
+    for n, n_pat, offset, all_pad in [(4097, 1, 0, False), (4098, 32, 1, False), (4099, 0, 0, False),
+                                      (1026, 32, 2, False), (100_001, 6, 3, False), (4096, 5, 0, True),
+                                      (3, 32, 1, False), (2, 1, 2, False)]:
+        spo = rng.integers(0, 5, size=(n + offset, 3)).astype(np.int32)
+        spo[rng.random(n + offset) < 0.1] = pad
+        if all_pad:
+            spo[:] = pad
+        pats = rng.integers(-1, 5, size=(n_pat, 3)).astype(np.int32)
+        if n_pat:
+            pats[-1] = -1
+        t_spo, t_pats = torch.as_tensor(spo, device=device)[offset:], torch.as_tensor(pats, device=device)
+        got = triple_match.triple_match_cuda(t_spo, t_pats)
+        check(torch.equal(got, ref.pattern_bitmask_ref(t_spo, t_pats)),
+              f"triple_match != plain at n={n} P={n_pat} offset={offset} all_pad={all_pad}")
+        cases += 1
     for s_rows, q_rows, vocab, skew in [(1, 5, 3, False), (3000, 5000, 30, False),
                                         (200_000, 300_000, 200, False), (200_000, 300_000, 200, True)]:
         rows = np.unique(rng.integers(0, vocab, size=(s_rows, 3)).astype(np.int32), axis=0)
@@ -637,7 +661,8 @@ def chain_kernel_cases(device, rng) -> int:
     5 (banks of 33 and 160 patterns); an all-tombstone word; PAD rows; row
     counts off the block size. K7: Vp = 1, 31, 32, 33 and 64; dead slots;
     parents in the first and the last word; wildcard residuals; PAD rows;
-    one plane, planes sharing one row set, planes with their own rows."""
+    one plane, planes sharing one row set, planes with their own rows; and
+    REFINE_CASES, the slot-mask design's paths."""
     import torch
     from repro_torch.kernels import lane_refine, ref, triple_match_words_segmented
 
@@ -691,7 +716,53 @@ def chain_kernel_cases(device, rng) -> int:
         check(torch.equal(got, ref.lane_refine_ref(*args)),
               f"lane_refine != plain at n={n} Vp={vp} planes={planes} shared={shared}")
         cases += 1
+    for n, w, vp, planes, shared, n_const, vocab, positions in REFINE_CASES:
+        args = [torch.as_tensor(x, device=device)
+                for x in refine_case(rng, n, w, vp, planes, shared, n_const, vocab, positions)]
+        got = lane_refine.lane_refine_cuda(*args)
+        check(torch.equal(got, ref.lane_refine_ref(*args)),
+              f"lane_refine != plain at n={n} W={w} Vp={vp} planes={planes} shared={shared} constants={n_const}")
+        cases += 1
     return cases
+
+
+# K7's slot-mask paths, (n, W, Vp, planes, shared rows, constants a slot,
+# vocabulary, residual positions): two and three constants; 600 distinct
+# o-constants from a vocabulary of 10^6 (more than one table holds); Vp of
+# 192-256, several chunks of output words (vector and scalar stores); W = 10;
+# F = 1, 2 and 32, shared and per-plane rows; N below one block; Vp = 0
+REFINE_CASES = [(4097, 1, 64, 2, True, 2, 5, (0, 1, 2)), (4097, 2, 64, 2, False, 3, 5, (0, 1, 2)),
+                (20_000, 10, 600, 2, True, 1, 10 ** 6, (2,)), (4097, 3, 200, 3, True, None, 7, (0, 1, 2)),
+                (4097, 2, 256, 2, False, None, 4, (0, 1, 2)), (4097, 2, 192, 2, True, 2, 4, (0, 1, 2)),
+                (4097, 10, 40, 2, False, None, 5, (0, 1, 2)), (1000, 1, 33, 32, True, None, 5, (0, 1, 2)),
+                (1000, 1, 33, 32, False, None, 5, (0, 1, 2)), (100, 2, 31, 1, False, None, 5, (0, 1, 2)),
+                (100, 2, 31, 1, True, None, 5, (0, 1, 2)), (17, 1, 0, 2, True, None, 5, (0, 1, 2))]
+
+
+def refine_case(rng, n, w, vp, planes, shared, n_const, vocab, positions=(0, 1, 2)):
+    """Random lane_refine inputs: int32[F, N, W] real words of random bits
+    (a fifth of the rows zeroed), a fifth of the slots dead (parents -1, -5,
+    32 W and beyond), ``n_const`` residual constants a slot at ``positions``
+    (random 0-3 when None), and half of the rows carrying some slot's
+    constants so that the compares hit."""
+    pad = np.iinfo(np.int32).max
+    spo = rng.integers(0, vocab, size=((n,) if shared else (planes, n)) + (3,)).astype(np.int32)
+    parents = rng.integers(0, 32 * w, size=vp).astype(np.int32)
+    dead = rng.random(vp) < 0.2
+    parents[dead] = rng.choice(np.array([-1, -5, 32 * w, 32 * w + 7], np.int32), size=int(dead.sum()))
+    residual = np.full((vp, 3), -1, np.int32)
+    for v in range(vp):
+        c = int(rng.integers(0, len(positions) + 1)) if n_const is None else n_const
+        residual[v, rng.choice(positions, size=c, replace=False)] = rng.integers(0, vocab, size=c)
+    flat = spo.reshape(-1, 3)
+    if vp:
+        hit = rng.random(flat.shape[0]) < 0.5
+        src = residual[rng.integers(0, vp, size=int(hit.sum()))]
+        flat[hit] = np.where(src == -1, flat[hit], src)
+    flat[rng.random(flat.shape[0]) < 0.1] = pad
+    words = rng.integers(-(1 << 31), 1 << 31, size=(planes, n, w), dtype=np.int64).astype(np.int32)
+    words[rng.random((planes, n)) < 0.2] = 0
+    return spo, words, parents, residual
 
 
 def phase_small(tcore, device, seed):
@@ -1401,6 +1472,17 @@ def time_cuda(fn, iters: int, flush) -> float:
     return float(np.median(times))
 
 
+def launch_floor(device, flush) -> float:
+    """Median ms of a launch that does no real work (a one-element fill),
+    timed as the kernels are: the floor under a few-µs bound."""
+    import torch
+
+    one = torch.empty(1, dtype=torch.int32, device=device)
+    ms = time_cuda(lambda: one.fill_(0), 50, flush)
+    log(f"timing: launch floor (one-element fill, L2 flushed as for the kernels): {ms:.4f} ms")
+    return ms
+
+
 def phase_timing(tcore, device, subs, changesets, launches):
     import torch
     from repro_torch.kernels import merge_join, ref, triple_match
@@ -1626,16 +1708,31 @@ def chain_timing(rec, launches, flush):
         "ms": time_cuda(lambda: lane_refine.lane_refine_cuda(spo, words, parents, residual), 50, flush),
         "plain_ms": time_cuda(lambda: ref.lane_refine_ref(spo, words, parents, residual), 10, flush),
     }
-    # the rows read once (once for all planes when they share them), each
-    # plane's real words read and virtual words written once; per valid row
-    # of a plane and live slot ~10 operations (word select, shift, three
-    # compares, the ands)
+    # bytes: the rows read once (once for all planes when they share them),
+    # each plane's real words read and virtual words written once.
+    # operations, as the slot-mask design needs them: three table lookups a
+    # valid row, Wv ORs a set parent bit that has children, Wv ANDs a valid
+    # plane row
     spo_bytes = n * 12 * (1 if shared else planes)
-    k7["bound_ms"], k7["bound_by"] = bound(spo_bytes + planes * n * (4 * w + 4 * wv) + vp * 16, n_valid * n_live * 10)
+    n_bytes = spo_bytes + planes * n * (4 * w + 4 * wv) + vp * 16
+    n_rows = int((spo[..., 0] != PAD).sum())
+    lanes = parents[(parents >= 0) & (parents < 32 * w)].long().unique().tolist()
+    has_children = torch.zeros(w, dtype=torch.int64, device=words.device)
+    for lane in lanes:
+        has_children[lane // 32] |= 1 << (lane % 32)
+    masked = (words.long() & 0xFFFFFFFF) & has_children
+    set_bits = sum(int(((masked >> b) & 1).sum()) for b in range(32))
+    k7["bound_ms"], k7["bound_by"] = bound(n_bytes, 3 * n_rows + set_bits * wv + n_valid * wv)
+    # the bound stated for the earlier per-slot kernel: per valid row of a
+    # plane and live slot ~10 operations (word select, shift, three
+    # compares, the ands); kept beside the restated one
+    k7["old_bound_ms"], k7["old_bound_by"] = bound(n_bytes, n_valid * n_live * 10)
     k7["library_ms"] = None  # no single PyTorch call refines lane bits by residual compares
     log(f"timing: lane_refine F={planes} N={n:,} ({n_valid:,} valid plane rows, rows shared {shared}) W={w} "
-        f"Vp={vp} ({n_live} live): {k7['ms']:.4f} ms, plain {k7['plain_ms']:.4f} ms, "
-        f"bound {k7['bound_ms']:.4f} ms ({k7['bound_by']})")
+        f"Vp={vp} ({n_live} live, {len(lanes)} parent lanes, {set_bits:,} set parent bits with children): "
+        f"{k7['ms']:.4f} ms, plain {k7['plain_ms']:.4f} ms, "
+        f"bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}); old per-slot bound {k7['old_bound_ms']:.4f} ms "
+        f"({k7['old_bound_by']})")
     torch.cuda.synchronize()
     return [k6, k7]
 
@@ -1676,7 +1773,7 @@ def profile_call(label: str, fn) -> None:
         groups[group] = groups.get(group, 0.0) + ms
     log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for _, c, _ in rows)} device ops; by group: "
-        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
         log(f"  {ms:8.3f} ms  x{count:<5d} {key[:110]}")
 
@@ -1741,6 +1838,9 @@ def main(argv=None) -> int:
     scratch = torch.empty(1 << 28, dtype=torch.uint8, device=device)  # 256 MiB > 50 MB L2
     table += bank_timing(rec, broker_launches, scratch.zero_)
     table += chain_timing(rec, broker_launches, scratch.zero_)
+    floor_ms = launch_floor(device, scratch.zero_)
+    for row in table:
+        row["launch_floor_ms"] = floor_ms
     del scratch, rec
     phase_profile(subs, stream, broker, broker_stream)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]

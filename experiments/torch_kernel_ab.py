@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time the port's K1 and K7 kernels against another tree's, on one CUDA card.
+
+    python3 experiments/torch_kernel_ab.py --old DIR
+
+``DIR`` is another checkout of the repository (for example the parent
+commit unpacked with ``git archive``). The script builds
+``csrc/triple_match.cu`` (K1) and ``csrc/lane_refine.cu`` (K7) of this tree
+through ``repro_torch.kernels.build`` and those of ``DIR`` with the same
+``nvcc`` flags, checks both against the plain versions, and times them in
+turns (old, new, new, old) at synthetic shapes of the main path:
+
+- K1: N = 1,179,648 rows (a quarter of them PAD), P = 6 patterns;
+- K7: F = 2 planes over N = 524,288 shared rows (a quarter PAD), W = 1 with 9
+  real lanes, Vp = 64 with 41 live slots under 2 parent lanes, o-constants
+  that 30% of the rows hit.
+
+Each time is the median of 50 launches with the L2 flushed before each, two
+ways: by zeroing 256 MiB (the lines left dirty, as ``chip_smoke.py``
+flushes) and by reading them (left clean). Beside the kernels: a
+one-element fill (the launch floor) and a device copy that moves the same
+bytes as each kernel (``copy_``, half read and half written). Then K7 at N =
+256 rows, one block, with Vp = 64 and Vp = 0 (the table build's cost), and
+with Vp = 64 right after a one-row launch of the same kernel (the code,
+parents and residual back in the caches, the rows still cold).
+Prints the card, one line a measurement and a JSON line of all of them.
+Needs a card; imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+PAD = int(np.iinfo(np.int32).max)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", type=Path, required=True, help="another checkout of the repository")
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab.py needs a CUDA device", file=sys.stderr)
+        return 3
+    from repro_torch.kernels import build, lane_refine, ref, triple_match
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    build.build(["triple_match", "lane_refine"])
+    out_dir = REPO / "build" / "kernels_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    old = {}
+    for name in ("triple_match", "lane_refine"):
+        so = out_dir / f"old_{name}.so"
+        src = args.old / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+        done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            print(done.stdout + done.stderr, file=sys.stderr)
+            return 1
+        fn = getattr(ctypes.CDLL(str(so)), f"{name}_launch")
+        fn.argtypes = (triple_match if name == "triple_match" else lane_refine)._entry().argtypes
+        fn.restype = ctypes.c_int
+        old[name] = fn
+
+    dev = torch.device("cuda", 0)
+    scratch = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    flushes = {"dirty": scratch.zero_, "clean": lambda: scratch.view(torch.int64).max()}
+
+    def timed(fn, flush) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(args.iters):
+            flush()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def stream() -> int:
+        return torch.cuda.current_stream().cuda_stream
+
+    rng = np.random.default_rng(0)
+    # K1
+    n1 = 1_179_648
+    spo1 = rng.integers(0, 50, size=(n1, 3)).astype(np.int32)
+    spo1[3 * n1 // 4:] = PAD
+    s1 = torch.as_tensor(spo1, device=dev)
+    p1 = torch.as_tensor(rng.integers(-1, 50, size=(6, 3)).astype(np.int32), device=dev)
+    want1 = ref.pattern_bitmask_ref(s1, p1)
+    o1 = torch.empty_like(want1)
+
+    def k1_old():
+        if old["triple_match"](s1.data_ptr(), n1, p1.data_ptr(), 6, o1.data_ptr(), stream()) != 0:
+            raise RuntimeError("old triple_match launch")
+
+    # K7
+    n7, f7 = 524_288, 2
+    spo7 = rng.integers(0, 1000, size=(n7, 3)).astype(np.int32)
+    spo7[3 * n7 // 4:] = PAD
+    words = (rng.integers(0, 1 << 9, size=(f7, n7, 1)) & rng.integers(0, 1 << 9, size=(f7, n7, 1))).astype(np.int32)
+    words[:, 3 * n7 // 4:] = 0
+    parents = np.full(64, -1, np.int32)
+    residual = np.full((64, 3), PAD, np.int32)
+    live = rng.choice(64, 41, replace=False)
+    parents[live] = rng.choice([2, 5], 41)
+    residual[live] = -1
+    residual[live, 2] = rng.integers(0, 1000, 41)
+    hit = rng.random(n7) < 0.3
+    spo7[hit, 2] = rng.choice(residual[live, 2], int(hit.sum()))
+    a7 = [torch.as_tensor(x, device=dev) for x in (spo7, words, parents, residual)]
+    want7 = ref.lane_refine_ref(*a7)
+    o7 = torch.empty_like(want7)
+
+    def k7_old():
+        s, w, p, r = a7
+        if old["lane_refine"](s.data_ptr(), 0, w.data_ptr(), f7, n7, 1, p.data_ptr(), r.data_ptr(), 64, 2,
+                              o7.data_ptr(), stream()) != 0:
+            raise RuntimeError("old lane_refine launch")
+
+    k1_old()
+    k7_old()
+    torch.cuda.synchronize()
+    for label, got, want in [("K1 old", o1, want1), ("K1 new", triple_match.triple_match_cuda(s1, p1), want1),
+                             ("K7 old", o7, want7), ("K7 new", lane_refine.lane_refine_cuda(*a7), want7)]:
+        if not torch.equal(got, want):
+            print(f"{label} != plain", file=sys.stderr)
+            return 1
+
+    def copy_of(n_bytes: int):
+        half = torch.empty(n_bytes // 8, dtype=torch.int32, device=dev)
+        other = torch.empty_like(half)
+        return lambda: other.copy_(half)
+
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    k1_bytes = n1 * 16 + 6 * 12
+    k7_bytes = n7 * 12 + f7 * n7 * (4 + 8) + 64 * 16
+    cases = {
+        "floor": lambda: one.fill_(0),
+        "copy of K1's bytes": copy_of(k1_bytes),
+        "K1 old": k1_old, "K1 new": lambda: triple_match.triple_match_cuda(s1, p1),
+        "copy of K7's bytes": copy_of(k7_bytes),
+        "K7 old": k7_old, "K7 new": lambda: lane_refine.lane_refine_cuda(*a7),
+    }
+    result = {"card": card}
+    for mode, flush in flushes.items():
+        row = {}
+        for label in ("floor", "copy of K1's bytes", "copy of K7's bytes"):
+            row[label] = timed(cases[label], flush)
+        for pair in (("K1 old", "K1 new"), ("K7 old", "K7 new")):
+            first = {label: timed(cases[label], flush) for label in pair}
+            second = {label: timed(cases[label], flush) for label in reversed(pair)}
+            for label in pair:
+                row[label] = [first[label], second[label]]
+        result[mode] = row
+        print(f"L2 {mode}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
+    small = [a7[0][:256].contiguous(), a7[1][:, :256].contiguous(), a7[2], a7[3]]
+    empty = small[:2] + [a7[2][:0], a7[3][:0]]
+    result["K7 N=256 Vp=64"] = timed(lambda: lane_refine.lane_refine_cuda(*small), flushes["dirty"])
+    result["K7 N=256 Vp=0"] = timed(lambda: lane_refine.lane_refine_cuda(*empty), flushes["dirty"])
+    tiny = [a7[0][:1].contiguous(), a7[1][:, :1].contiguous(), a7[2], a7[3]]
+
+    def warmed():  # the flush, then a one-row launch that brings the code, parents and residual back
+        flushes["dirty"]()
+        lane_refine.lane_refine_cuda(*tiny)
+
+    result["K7 N=256 Vp=64 warmed"] = timed(lambda: lane_refine.lane_refine_cuda(*small), warmed)
+    print(f"K7 at N=256 (one block), L2 dirty: Vp=64 {result['K7 N=256 Vp=64']} ms, "
+          f"Vp=0 {result['K7 N=256 Vp=0']} ms, Vp=64 after a one-row launch {result['K7 N=256 Vp=64 warmed']} ms")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

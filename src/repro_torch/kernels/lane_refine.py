@@ -5,11 +5,18 @@ kernel K7): the words of the subsumption lattice's virtual lanes. Virtual
 slot ``v``'s bit is its parent real lane's bit, read out of the real-bank
 words, AND the residual compare of the slot's three terms; a parent of -1 (or
 one outside the words) is a dead slot. The CUDA source is
-``csrc/lane_refine.cu``: one thread per (plane, row), the parents and
-residuals staged in shared memory, so every frontier plane of a fire takes
-one launch (the TPU kernel refined one plane a call, under a vmap). Its bound
-on an H100 is memory, ``12 + 4 W + 4 Wv`` bytes a row and plane at 3.35
-TB/s. The plain version is :func:`repro_torch.kernels.ref.lane_refine_ref`.
+``csrc/lane_refine.cu``. It loops over no slots: each block builds, in shared
+memory, per-position slot masks (the wildcard slots, and a hash table of the
+residual constants with each one's slots) and each parent lane's child mask,
+so a row costs three table lookups and, per plane, an OR of the child masks
+of its set parent bits, ANDed with the three position masks. The grid is
+persistent, so a block builds its tables once for many rows; rows shared by
+every plane are read once, and every frontier plane of a fire takes one
+launch (the TPU kernel refined one plane a call, under a vmap). Its bound on
+an H100 is bytes: ``12 + 4 W + 4 Wv`` a row and plane (the rows once when
+shared) at 3.35 TB/s; its operations, three lookups a row and ``Wv`` ORs a
+set parent bit and ``Wv`` ANDs a plane, are far below the int32 rate. The
+plain version is :func:`repro_torch.kernels.ref.lane_refine_ref`.
 
 ``launches`` counts the kernel launches of this process.
 """

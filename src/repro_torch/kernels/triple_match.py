@@ -3,10 +3,13 @@
 Replaces ``repro/kernels/triple_match.py::triple_match_pallas`` (the TPU
 kernel K1): an int32[N] bitset whose bit j is set iff row i matches
 ``patterns[j]`` (``-1`` is a wildcard, PAD rows match nothing, at most 32
-patterns). The CUDA source is ``csrc/triple_match.cu``; it runs one thread
-per row over the row-major ``int32[N, 3]`` store with the patterns in shared
-memory. Its bound on an H100 is memory: 16 bytes per row (12 read, 4
-written) at 3.35 TB/s. The plain version is
+patterns). The CUDA source is ``csrc/triple_match.cu``, a vectorised row
+stream over the row-major ``int32[N, 3]`` store: a thread takes 4 rows as
+three 16-byte loads and stores their 4 words as one, with its next 4 rows in
+flight, in a persistent grid that stages the patterns in shared memory once
+a block (a base off 16-byte alignment or N % 4 != 0 takes a few rows on a
+scalar path). Its bound on an H100 is bytes: 16 a row (12 read, 4 written)
+at 3.35 TB/s. The plain version is
 :func:`repro_torch.kernels.ref.pattern_bitmask_ref`.
 
 ``launches`` counts the kernel launches of this process.

@@ -50,6 +50,21 @@ def test_triple_match_kernel_equals_plain(card, n, n_pat):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+# N % 4 of 1, 2 and 3 (the scalar tail), bases offset by 1, 2 and 3 rows (the
+# scalar head, unaligned output stores), P of 0, 1 and 32, all-PAD rows
+@pytest.mark.parametrize("n,n_pat,offset,all_pad", [(4097, 1, 0, False), (4098, 32, 1, False), (4099, 0, 0, False),
+                                                    (1026, 32, 2, False), (100_001, 6, 3, False),
+                                                    (4096, 5, 0, True), (3, 32, 1, False), (2, 1, 2, False)])
+def test_triple_match_row_stream_edges_equal_plain(card, n, n_pat, offset, all_pad):
+    spo, pats = k1_inputs(n + offset, n_pat, 5, n + offset + n_pat)
+    if all_pad:
+        spo[:] = PAD
+    t_spo = torch.as_tensor(spo, device=card)[offset:]  # contiguous, its base offset by whole rows
+    got = triple_match.triple_match_cuda(t_spo, torch.as_tensor(pats, device=card))
+    want = ref.pattern_bitmask_ref(torch.as_tensor(spo[offset:]), torch.as_tensor(pats))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("side", ["left", "right"])
 @pytest.mark.parametrize("s_rows,q_rows,vocab", [(1, 7, 3), (3000, 5000, 30), (70_000, 20_000, 60)])
 def test_merge_probe_kernel_equals_plain(card, side, s_rows, q_rows, vocab):
@@ -251,6 +266,53 @@ def test_lane_refine_kernel_equals_plain(card, n, n_pat, vp, n_virt, planes, sha
     if planes == 1 and not shared:
         args[0] = t_spo[0]
     got = lane_refine.lane_refine_cuda(*(a.to(card) for a in args))
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.lane_refine_ref(*args).numpy())
+
+
+def refine_case(rng, n, w, vp, planes, shared, n_const, vocab, positions=(0, 1, 2)):
+    """Random lane_refine inputs: int32[F, N, W] real words of random bits
+    (a fifth of the rows zeroed), a fifth of the slots dead (parents -1, -5,
+    32 W and beyond), ``n_const`` residual constants a slot at ``positions``
+    (random 0-3 when None), and half of the rows carrying some slot's
+    constants so that the compares hit."""
+    spo = rng.integers(0, vocab, size=((n,) if shared else (planes, n)) + (3,)).astype(np.int32)
+    parents = rng.integers(0, 32 * w, size=vp).astype(np.int32)
+    dead = rng.random(vp) < 0.2
+    parents[dead] = rng.choice(np.array([-1, -5, 32 * w, 32 * w + 7], np.int32), size=int(dead.sum()))
+    residual = np.full((vp, 3), -1, np.int32)
+    for v in range(vp):
+        c = int(rng.integers(0, len(positions) + 1)) if n_const is None else n_const
+        residual[v, rng.choice(positions, size=c, replace=False)] = rng.integers(0, vocab, size=c)
+    flat = spo.reshape(-1, 3)
+    if vp:
+        hit = rng.random(flat.shape[0]) < 0.5
+        src = residual[rng.integers(0, vp, size=int(hit.sum()))]
+        flat[hit] = np.where(src == -1, flat[hit], src)
+    flat[rng.random(flat.shape[0]) < 0.1] = PAD
+    words = rng.integers(-(1 << 31), 1 << 31, size=(planes, n, w), dtype=np.int64).astype(np.int32)
+    words[rng.random((planes, n)) < 0.2] = 0
+    return spo, words, parents, residual
+
+
+# (n, W, Vp, planes, shared rows, constants a slot, vocabulary, residual positions):
+# two and three constants; 600 distinct o-constants from a vocabulary of 10^6
+# (more than one table holds); Vp of 129-256, several chunks of output words
+# (vector and scalar stores); W = 10; F = 1, 2 and 32, shared and per-plane
+# rows; N below one block; Vp = 0
+REFINE_CASES = [(4097, 1, 64, 2, True, 2, 5, (0, 1, 2)), (4097, 2, 64, 2, False, 3, 5, (0, 1, 2)),
+                (20_000, 10, 600, 2, True, 1, 10 ** 6, (2,)), (4097, 3, 200, 3, True, None, 7, (0, 1, 2)),
+                (4097, 2, 256, 2, False, None, 4, (0, 1, 2)), (4097, 2, 192, 2, True, 2, 4, (0, 1, 2)),
+                (4097, 10, 40, 2, False, None, 5, (0, 1, 2)), (1000, 1, 33, 32, True, None, 5, (0, 1, 2)),
+                (1000, 1, 33, 32, False, None, 5, (0, 1, 2)), (100, 2, 31, 1, False, None, 5, (0, 1, 2)),
+                (100, 2, 31, 1, True, None, 5, (0, 1, 2)), (17, 1, 0, 2, True, None, 5, (0, 1, 2))]
+
+
+@pytest.mark.parametrize("n,w,vp,planes,shared,n_const,vocab,positions", REFINE_CASES)
+def test_lane_refine_slot_masks_equal_plain(card, n, w, vp, planes, shared, n_const, vocab, positions):
+    rng = np.random.default_rng(n * 7 + vp)
+    args = [torch.as_tensor(x) for x in refine_case(rng, n, w, vp, planes, shared, n_const, vocab, positions)]
+    got = lane_refine.lane_refine_cuda(*(a.to(card) for a in args))
+    assert tuple(got.shape) == (planes, n, max(1, -(-vp // 32)))
     np.testing.assert_array_equal(got.cpu().numpy(), ref.lane_refine_ref(*args).numpy())
 
 
