@@ -20,7 +20,11 @@ Phases, each fatal on failure:
    all-PAD rows; K7's slot masks with two and three constants a slot, 600
    distinct constants at one position, Vp of 0 to 600 over several chunks of
    output words, W = 10, parents at and beyond 32 W, F = 1, 2 and 32 over
-   shared and per-plane rows, N below one block).
+   shared and per-plane rows, N below one block; K4's and K6's slot masks
+   with many slots sharing one constant, 320 distinct constants at one
+   position, wildcard-only, all-PAD and partly PAD slots, W = 1, 2, 5 and
+   10, bases offset by 1-3 rows, N % 4 of 1-3, N below one group, all-PAD
+   rows, 1, 2, 3 and 32 segments, rows of no segment).
 3. small: the paper's running example, and a small id-space stream with the
    Football and Location interests, through ``IrapEngine`` on the card; every
    named set equals the pure-Python oracle's; then both through the default
@@ -47,7 +51,8 @@ Phases, each fatal on failure:
    int32 lanes and clock), the probe's tiles per path at each shape, the
    probe once more with the prefix queries shuffled and in range mode
    against two single-side launches; the launch floor (a one-element fill
-   timed the same way); one JSON line ``{"kernels": [...]}``. Then one
+   timed the same way; K4's, K6's and K7's restated bounds beside their old
+   per-slot ones); one JSON line ``{"kernels": [...]}``. Then one
    more changeset per interest, and one more broker fire, under
    ``torch.profiler``: the device's busy share and where its time goes.
 
@@ -607,7 +612,8 @@ def bank_kernel_cases(device, rng) -> int:
     """K4 (bank words) and K5 (fused lane bits) against their plain versions:
     W = 1, 2 and 5; P not a multiple of 32 with bit 31 set; all-PAD bank rows
     and PAD rows; 1, 4095, 4097 and ~10^5 rows; inactive members; nt = 1 and
-    32; lanes in the last word."""
+    32; lanes in the last word. Then K4 at BANK_CASES, the slot-mask
+    design's paths."""
     import torch
     from repro_torch.kernels import ref, triple_match_lanes, triple_match_words
 
@@ -637,6 +643,16 @@ def bank_kernel_cases(device, rng) -> int:
         if n_pat and n_pat % 32 == 0:
             check(bool((got[spo[:, 0] != pad, -1] < 0).all()), "bit 31 of the last word on every valid row")
         cases += 1
+    for n, n_pat, offset, kind, all_pad in BANK_CASES:
+        spo_np, pats_np = bank_case(rng, n + offset, n_pat, kind)
+        if all_pad:
+            spo_np[:] = pad
+        spo = torch.as_tensor(spo_np, device=device)[offset:]  # contiguous, its base offset by whole rows
+        pats = torch.as_tensor(pats_np, device=device)
+        got = triple_match_words.triple_match_words_cuda(spo, pats)
+        check(torch.equal(got, ref.pattern_bitmask_words_ref(spo, pats)),
+              f"triple_match_words != plain at n={n} P={n_pat} offset={offset} bank={kind} all_pad={all_pad}")
+        cases += 1
     for r, n, n_pat, nt, inactive in [(2, 1, 32, 1, ()), (3, 4095, 64, 32, (1,)), (4, 4097, 160, 6, (0, 3)),
                                       (5, 100_003, 64, 3, (2, 4)), (2, 17, 32, 4, (0, 1))]:
         spo_b = torch.as_tensor(rows((r, n), 4), device=device)
@@ -659,7 +675,8 @@ def chain_kernel_cases(device, rng) -> int:
     """K6 (segmented words) and K7 (lane refine) against their plain
     versions. K6: 1, 2 and 32 segments; seg bits above n_seg; W = 1, 2 and
     5 (banks of 33 and 160 patterns); an all-tombstone word; PAD rows; row
-    counts off the block size. K7: Vp = 1, 31, 32, 33 and 64; dead slots;
+    counts off the block size; and SEG_BANK_CASES, the slot-mask design's
+    paths. K7: Vp = 1, 31, 32, 33 and 64; dead slots;
     parents in the first and the last word; wildcard residuals; PAD rows;
     one plane, planes sharing one row set, planes with their own rows; and
     REFINE_CASES, the slot-mask design's paths."""
@@ -690,6 +707,23 @@ def chain_kernel_cases(device, rng) -> int:
         got = triple_match_words_segmented.triple_match_words_segmented_cuda(spo, pats, seg, n_seg)
         want = ref.pattern_bitmask_words_segmented_ref(spo, pats, seg, n_seg)
         check(torch.equal(got, want), f"triple_match_words_segmented != plain at n={n} P={n_pat} n_seg={n_seg}")
+        cases += 1
+    for n, n_pat, offset, kind, all_pad, n_seg, bits in SEG_BANK_CASES:
+        spo_np, pats_np = bank_case(rng, n + offset, n_pat, kind)
+        if all_pad:
+            spo_np[:] = pad
+        seg = rng.integers(-(1 << 31), (1 << 31) - 1, size=n + 4).astype(np.int32)
+        if bits < 32:
+            seg &= (1 << bits) - 1
+        seg[rng.random(n + 4) < 0.2] = 0  # rows of no segment
+        seg_offset = (offset + 1) % 4  # seg's base off the rows' alignment
+        spo = torch.as_tensor(spo_np, device=device)[offset:]
+        pats = torch.as_tensor(pats_np, device=device)
+        seg = torch.as_tensor(seg, device=device)[seg_offset:seg_offset + n]
+        got = triple_match_words_segmented.triple_match_words_segmented_cuda(spo, pats, seg, n_seg)
+        check(torch.equal(got, ref.pattern_bitmask_words_segmented_ref(spo, pats, seg, n_seg)),
+              f"triple_match_words_segmented != plain at n={n} P={n_pat} offset={offset} bank={kind} "
+              f"all_pad={all_pad} n_seg={n_seg}")
         cases += 1
     for n, n_pat, vp, n_virt, planes, shared in [(1, 7, 1, 1, 1, True), (4097, 64, 31, 20, 2, True),
                                                  (4095, 64, 32, 32, 3, False), (100_003, 160, 33, 9, 2, True),
@@ -724,6 +758,50 @@ def chain_kernel_cases(device, rng) -> int:
               f"lane_refine != plain at n={n} W={w} Vp={vp} planes={planes} shared={shared} constants={n_const}")
         cases += 1
     return cases
+
+
+# K4's and K6's slot-mask paths, (n, P, base offset in rows, bank kind, all-PAD
+# rows): W = 1, 2, 5 and 10; 320 distinct constants at one position (three
+# chunks of tables); bases offset by 1-3 rows and N % 4 of 1-3 (the scalar
+# head and tail, unaligned stores); N below one group of 4 rows; an all-PAD
+# row set. K6 adds (n_seg, seg bits drawn): 1, 2, 3 and 32 segments, bits
+# above n_seg.
+BANK_CASES = [(4097, 32, 0, "shared", False), (4098, 64, 1, "wild", False), (4099, 160, 2, "pad", False),
+              (20_001, 320, 3, "distinct", False), (3, 7, 1, "mixed", False), (4096, 45, 0, "mixed", True),
+              (2, 1, 2, "wild", False), (100_003, 9, 0, "pad", False), (1001, 300, 1, "shared", False)]
+SEG_BANK_CASES = [case + seg for case, seg in zip(BANK_CASES, [(1, 3), (2, 2), (32, 32), (2, 5), (32, 30), (3, 3),
+                                                               (1, 1), (2, 2), (3, 32)])]
+
+
+def bank_case(rng, n, n_pat, kind):
+    """Rows and a bank for the bank-words kernels' slot-mask paths. ``kind``:
+    "shared" (every slot's p is one constant), "distinct" (wildcards but for
+    distinct o-constants from a vocabulary of 10^6: more than one table of
+    128 slots holds once P > 128), "wild" (every third slot wildcard-only),
+    "pad" (every fourth slot all-PAD, the next one PAD at one position) or
+    "mixed" (random terms); half of the rows carry some slot's constants, so
+    that rows PAD at p or o meet the slots PAD there, and a tenth are PAD."""
+    pad = np.iinfo(np.int32).max
+    vocab = 10 ** 6 if kind == "distinct" else 6
+    pats = rng.integers(-1, vocab, size=(n_pat, 3)).astype(np.int32)
+    if kind == "shared":
+        pats[:, 1] = 3
+    elif kind == "distinct":
+        pats[:, :2] = -1
+        pats[:, 2] = rng.choice(vocab, size=n_pat, replace=False)
+    elif kind == "wild":
+        pats[::3] = -1
+    elif kind == "pad":
+        pats[::4] = pad
+        for j in range(1, n_pat, 4):
+            pats[j, rng.integers(0, 3)] = pad
+    spo = rng.integers(0, vocab, size=(n, 3)).astype(np.int32)
+    if n_pat:
+        hit = rng.random(n) < 0.5
+        src = pats[rng.integers(0, n_pat, size=int(hit.sum()))]
+        spo[hit] = np.where(src == -1, spo[hit], src)
+    spo[rng.random(n) < 0.1] = pad
+    return spo, pats
 
 
 # K7's slot-mask paths, (n, W, Vp, planes, shared rows, constants a slot,
@@ -1620,14 +1698,19 @@ def bank_timing(rec, launches, flush):
         "ms": time_cuda(lambda: triple_match_words.triple_match_words_cuda(spo, bank), 50, flush),
         "plain_ms": time_cuda(lambda: ref.pattern_bitmask_words_ref(spo, bank), 10, flush),
     }
-    # each row read once and its W words written once; per valid row and
-    # live bank row about 7 integer operations (3 compares, 3 wildcard
-    # tests, 1 or)
-    k4["bound_ms"], k4["bound_by"] = bound(n * (12 + 4 * w) + n_pat * 12, n_valid * n_live * 7)
+    # bytes: each row read once and its W words written once. operations,
+    # as the slot-mask design needs them: three table lookups and W ANDs a
+    # valid row
+    k4_bytes = n * (12 + 4 * w) + n_pat * 12
+    k4["bound_ms"], k4["bound_by"] = bound(k4_bytes, n_valid * (3 + w))
+    # the bound stated for the earlier per-slot kernel: per valid row and
+    # live bank row ~7 operations (3 compares, 3 wildcard tests, 1 or)
+    k4["old_bound_ms"], k4["old_bound_by"] = bound(k4_bytes, n_valid * n_live * 7)
     k4["library_ms"] = None  # no single PyTorch call computes a multi-pattern bank bitset
     log(f"timing: triple_match_words N={n:,} ({n_valid:,} valid) W={w} ({n_live} live bank rows): "
         f"{k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, "
-        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}); old per-slot bound {k4['old_bound_ms']:.4f} ms "
+        f"({k4['old_bound_by']})")
 
     spo_b, bank, lanes, active = rec.lanes_args
     r, n, nt = spo_b.shape[0], spo_b.shape[1], lanes.shape[1]
@@ -1682,13 +1765,19 @@ def chain_timing(rec, launches, flush):
                         50, flush),
         "plain_ms": time_cuda(lambda: ref.pattern_bitmask_words_segmented_ref(spo, bank, seg, n_seg), 10, flush),
     }
-    # each row and its seg word read once (16 B), every plane's words
-    # written once; per valid member row and live bank row ~7 operations
-    k6["bound_ms"], k6["bound_by"] = bound(n * 16 + n_seg * n * w * 4 + n_pat * 12, n_valid * n_live * 7)
+    # bytes: each row and its seg word read once (16 B), every plane's words
+    # written once. operations, as the slot-mask design needs them: three
+    # table lookups a valid member row, W ANDs a valid row and plane
+    k6_bytes = n * 16 + n_seg * n * w * 4 + n_pat * 12
+    k6["bound_ms"], k6["bound_by"] = bound(k6_bytes, n_valid * (3 + n_seg * w))
+    # the bound stated for the earlier per-slot kernel: per valid member row
+    # and live bank row ~7 operations
+    k6["old_bound_ms"], k6["old_bound_by"] = bound(k6_bytes, n_valid * n_live * 7)
     k6["library_ms"] = None  # no single PyTorch call computes segment-masked bank bitsets
     log(f"timing: triple_match_words_segmented N={n:,} ({n_valid:,} valid members) n_seg={n_seg} W={w} "
         f"({n_live} live bank rows): {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
-        f"bound {k6['bound_ms']:.4f} ms ({k6['bound_by']})")
+        f"bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}); old per-slot bound {k6['old_bound_ms']:.4f} ms "
+        f"({k6['old_bound_by']})")
 
     spo, words, parents, residual = rec.refine_args
     planes = words.shape[0] if words.ndim == 3 else 1
@@ -1760,6 +1849,12 @@ def profile_call(label: str, fn) -> None:
     groups = {}
     for key, _, ms in rows:
         k = key.lower()
+        # K4 and K6 share one kernel template, bank_words_kernel<kSeg, kCW>,
+        # named demangled or mangled (ILb1E: kSeg true)
+        if "bank_words_kernel<true" in k or "bank_words_kernelilb1" in k:
+            k = "segmented"
+        elif "bank_words_kernel" in k:
+            k = "triple_match_words"
         group = ("triple_match_words_segmented kernel" if "segmented" in k else
                  "lane_refine kernel" if "lane_refine" in k else
                  "triple_match_words kernel" if "triple_match_words" in k else

@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Time the port's K1 and K7 kernels against another tree's, on one CUDA card.
+"""Time the port's K1, K4, K6 and K7 kernels against another tree's, on one CUDA card.
 
     python3 experiments/torch_kernel_ab.py --old DIR
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive``). The script builds
-``csrc/triple_match.cu`` (K1) and ``csrc/lane_refine.cu`` (K7) of this tree
-through ``repro_torch.kernels.build`` and those of ``DIR`` with the same
-``nvcc`` flags, checks both against the plain versions, and times them in
-turns (old, new, new, old) at synthetic shapes of the main path:
+``csrc/triple_match.cu`` (K1), ``csrc/triple_match_words.cu`` (K4),
+``csrc/triple_match_words_segmented.cu`` (K6) and ``csrc/lane_refine.cu``
+(K7) of this tree through ``repro_torch.kernels.build`` and those of ``DIR``
+with the same ``nvcc`` flags, checks both against the plain versions, and
+times them in turns (old, new, new, old) at synthetic shapes of the main
+path:
 
 - K1: N = 1,179,648 rows (a quarter of them PAD), P = 6 patterns;
+- K4: a single-frontier fire's deleted side, N = 131,072 rows of which
+  100,974 are valid (a PAD tail), a bank of 32 rows with 9 live (constants
+  at p and o, the rest all-PAD padding), W = 1;
+- K6: the flush's union, N = 524,288 rows of which 403,925 are valid, the
+  same bank, n_seg = 2 with membership bits 0-2 drawn per row;
 - K7: F = 2 planes over N = 524,288 shared rows (a quarter PAD), W = 1 with 9
   real lanes, Vp = 64 with 41 live slots under 2 parent lanes, o-constants
   that 30% of the rows hit.
@@ -52,16 +59,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab.py needs a CUDA device", file=sys.stderr)
         return 3
-    from repro_torch.kernels import build, lane_refine, ref, triple_match
+    from repro_torch.kernels import (build, lane_refine, ref, triple_match, triple_match_words,
+                                     triple_match_words_segmented)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
-    build.build(["triple_match", "lane_refine"])
+    wrappers = {"triple_match": triple_match, "triple_match_words": triple_match_words,
+                "triple_match_words_segmented": triple_match_words_segmented, "lane_refine": lane_refine}
+    build.build(list(wrappers))
     out_dir = REPO / "build" / "kernels_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     old = {}
-    for name in ("triple_match", "lane_refine"):
+    for name in wrappers:
         so = out_dir / f"old_{name}.so"
         src = args.old / "src" / "repro_torch" / "csrc" / f"{name}.cu"
         done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
@@ -70,7 +80,7 @@ def main(argv=None) -> int:
             print(done.stdout + done.stderr, file=sys.stderr)
             return 1
         fn = getattr(ctypes.CDLL(str(so)), f"{name}_launch")
-        fn.argtypes = (triple_match if name == "triple_match" else lane_refine)._entry().argtypes
+        fn.argtypes = wrappers[name]._entry().argtypes
         fn.restype = ctypes.c_int
         old[name] = fn
 
@@ -133,10 +143,49 @@ def main(argv=None) -> int:
                               o7.data_ptr(), stream()) != 0:
             raise RuntimeError("old lane_refine launch")
 
+    # K4 and K6: 9 live bank rows of a 32-row bank, the rows' valid prefix
+    # hitting their constants
+    bank = np.full((32, 3), PAD, np.int32)
+    bank[:9] = [[-1, 1, 100], [-1, 1, 101], [-1, 2, -1], [-1, 3, -1], [-1, 4, 102], [-1, 5, -1], [-1, 6, -1],
+                [-1, 1, -1], [7, 2, -1]]
+    t_bank = torch.as_tensor(bank, device=dev)
+
+    def bank_rows(n, valid):
+        spo = np.stack([rng.integers(0, 50_000, n), rng.integers(0, 10, n), rng.integers(95, 110, n)], 1)
+        spo = spo.astype(np.int32)
+        spo[valid:] = PAD
+        return torch.as_tensor(spo, device=dev)
+
+    n4, n6 = 131_072, 524_288
+    s4, s6 = bank_rows(n4, 100_974), bank_rows(n6, 403_925)
+    g6 = torch.as_tensor(rng.integers(0, 8, n6).astype(np.int32), device=dev)
+    want4 = ref.pattern_bitmask_words_ref(s4, t_bank)
+    want6 = ref.pattern_bitmask_words_segmented_ref(s6, t_bank, g6, 2)
+    o4, o6 = torch.empty_like(want4), torch.empty_like(want6)
+
+    def k4_old():
+        if old["triple_match_words"](s4.data_ptr(), n4, t_bank.data_ptr(), 32, 1, o4.data_ptr(), stream()) != 0:
+            raise RuntimeError("old triple_match_words launch")
+
+    def k6_old():
+        if old["triple_match_words_segmented"](s6.data_ptr(), g6.data_ptr(), n6, t_bank.data_ptr(), 32, 1, 2,
+                                               o6.data_ptr(), stream()) != 0:
+            raise RuntimeError("old triple_match_words_segmented launch")
+
+    def k4_new():
+        return triple_match_words.triple_match_words_cuda(s4, t_bank)
+
+    def k6_new():
+        return triple_match_words_segmented.triple_match_words_segmented_cuda(s6, t_bank, g6, 2)
+
     k1_old()
+    k4_old()
+    k6_old()
     k7_old()
     torch.cuda.synchronize()
     for label, got, want in [("K1 old", o1, want1), ("K1 new", triple_match.triple_match_cuda(s1, p1), want1),
+                             ("K4 old", o4, want4), ("K4 new", k4_new(), want4),
+                             ("K6 old", o6, want6), ("K6 new", k6_new(), want6),
                              ("K7 old", o7, want7), ("K7 new", lane_refine.lane_refine_cuda(*a7), want7)]:
         if not torch.equal(got, want):
             print(f"{label} != plain", file=sys.stderr)
@@ -149,20 +198,26 @@ def main(argv=None) -> int:
 
     one = torch.empty(1, dtype=torch.int32, device=dev)
     k1_bytes = n1 * 16 + 6 * 12
+    k4_bytes = n4 * 16 + 32 * 12
+    k6_bytes = n6 * 16 + 2 * n6 * 4 + 32 * 12
     k7_bytes = n7 * 12 + f7 * n7 * (4 + 8) + 64 * 16
     cases = {
         "floor": lambda: one.fill_(0),
         "copy of K1's bytes": copy_of(k1_bytes),
         "K1 old": k1_old, "K1 new": lambda: triple_match.triple_match_cuda(s1, p1),
+        "copy of K4's bytes": copy_of(k4_bytes),
+        "K4 old": k4_old, "K4 new": k4_new,
+        "copy of K6's bytes": copy_of(k6_bytes),
+        "K6 old": k6_old, "K6 new": k6_new,
         "copy of K7's bytes": copy_of(k7_bytes),
         "K7 old": k7_old, "K7 new": lambda: lane_refine.lane_refine_cuda(*a7),
     }
     result = {"card": card}
     for mode, flush in flushes.items():
         row = {}
-        for label in ("floor", "copy of K1's bytes", "copy of K7's bytes"):
+        for label in ("floor", "copy of K1's bytes", "copy of K4's bytes", "copy of K6's bytes", "copy of K7's bytes"):
             row[label] = timed(cases[label], flush)
-        for pair in (("K1 old", "K1 new"), ("K7 old", "K7 new")):
+        for pair in (("K1 old", "K1 new"), ("K4 old", "K4 new"), ("K6 old", "K6 new"), ("K7 old", "K7 new")):
             first = {label: timed(cases[label], flush) for label in pair}
             second = {label: timed(cases[label], flush) for label in reversed(pair)}
             for label in pair:

@@ -3,9 +3,10 @@
 Each source under ``src/repro_torch/csrc/`` is compiled on first use into its
 own shared library with a plain C entry point, for ``sm_90a`` (Hopper), into
 ``build/kernels/`` at the root of the checkout. The file name carries a hash
-of the source and the flags, so an edited source is rebuilt and a build is
-never shared between versions. :func:`build` starts one ``nvcc`` per missing
-library, all at once, and waits for them together.
+of the source, of every header under ``csrc/`` and of the flags, so an edited
+source or header is rebuilt and a build is never shared between versions.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and waits
+for them together.
 
 Nothing here runs at import time: machines without ``nvcc`` import the
 package and use the plain versions on CPU tensors.
@@ -51,9 +52,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:

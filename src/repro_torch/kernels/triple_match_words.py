@@ -5,11 +5,14 @@ TPU kernel K4): the broker's deleted-side pass, every word of an
 arbitrary-width pattern bank for every row in one launch. Word ``w`` of row
 ``i`` carries the match bits of ``bank[32w : 32w + 32]``; PAD rows give 0
 and all-PAD bank rows never match. The CUDA source is
-``csrc/triple_match_words.cu``: one thread per row over the row-major
-``int32[N, 3]`` store, the bank staged in shared memory in chunks, the
-words stored row-major as ``int32[N, W]`` (the TPU kernel's ``[W, N]`` and
-the transpose after it are gone). Its bound on an H100 is memory,
-``12 + 4W`` bytes a row at 3.35 TB/s. The plain version is
+``csrc/triple_match_words.cu`` over ``csrc/bank_slot_masks.cuh`` (shared
+with K6). It loops over no bank rows: each block builds, in shared memory,
+per-position slot masks (the wildcard slots, and a hash table of the bank's
+constants with each one's slots), so a row costs three table lookups; a
+persistent grid streams 4 rows a thread by 16-byte loads and stores, the
+words row-major as ``int32[N, W]`` (the TPU kernel's ``[W, N]`` and the
+transpose after it are gone). Its bound on an H100 is memory, ``12 + 4W``
+bytes a row at 3.35 TB/s. The plain version is
 :func:`repro_torch.kernels.ref.pattern_bitmask_words_ref`.
 
 ``launches`` counts the kernel launches of this process.

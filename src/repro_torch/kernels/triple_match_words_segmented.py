@@ -8,8 +8,10 @@ membership bitmap (bit ``f`` set iff the row is in frontier ``f``). Plane
 ``f`` of the output holds a member row's bank words (word ``w`` carries the
 match bits of ``bank[32w : 32w + 32]``) and 0 for any other row; seg bits at
 or above ``n_seg`` are ignored. The CUDA source is
-``csrc/triple_match_words_segmented.cu``: K4's design (one thread a row, the
-bank staged in shared memory), each word matched once and stored to every
+``csrc/triple_match_words_segmented.cu``: K4's design
+(``csrc/bank_slot_masks.cuh``: per-position slot masks in shared memory,
+three lookups a row, 4 rows a thread in a persistent grid), the rows' seg
+words read as one 16-byte load, each word matched once and stored to every
 plane, as ``int32[n_seg, N, W]`` row-major. Its bound on an H100 is memory,
 ``16 + 4 n_seg W`` bytes a row at 3.35 TB/s. The plain version is
 :func:`repro_torch.kernels.ref.pattern_bitmask_words_segmented_ref`.

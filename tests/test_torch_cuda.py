@@ -243,6 +243,84 @@ def test_triple_match_words_segmented_kernel_equals_plain(card, n, n_pat, dead, 
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def bank_case(rng, n, n_pat, kind):
+    """Rows and a bank for the bank-words kernels' slot-mask paths. ``kind``:
+    "shared" (every slot's p is one constant), "distinct" (wildcards but for
+    distinct o-constants from a vocabulary of 10^6: more than one table of
+    128 slots holds once P > 128), "wild" (every third slot wildcard-only),
+    "pad" (every fourth slot all-PAD, the next one PAD at one position) or
+    "mixed" (random terms); half of the rows carry some slot's constants, so
+    that rows PAD at p or o meet the slots PAD there, and a tenth are PAD."""
+    vocab = 10 ** 6 if kind == "distinct" else 6
+    pats = rng.integers(-1, vocab, size=(n_pat, 3)).astype(np.int32)
+    if kind == "shared":
+        pats[:, 1] = 3
+    elif kind == "distinct":
+        pats[:, :2] = -1
+        pats[:, 2] = rng.choice(vocab, size=n_pat, replace=False)
+    elif kind == "wild":
+        pats[::3] = -1
+    elif kind == "pad":
+        pats[::4] = PAD
+        for j in range(1, n_pat, 4):
+            pats[j, rng.integers(0, 3)] = PAD
+    spo = rng.integers(0, vocab, size=(n, 3)).astype(np.int32)
+    if n_pat:
+        hit = rng.random(n) < 0.5
+        src = pats[rng.integers(0, n_pat, size=int(hit.sum()))]
+        spo[hit] = np.where(src == -1, spo[hit], src)
+    spo[rng.random(n) < 0.1] = PAD
+    return spo, pats
+
+
+# (n, P, base offset in rows, bank kind, all-PAD rows): W = 1, 2, 5 and 10;
+# 320 distinct constants at one position (three chunks of tables); bases
+# offset by 1-3 rows and N % 4 of 1-3 (the scalar head and tail, unaligned
+# stores); N below one group of 4 rows; an all-PAD row set
+BANK_CASES = [(4097, 32, 0, "shared", False), (4098, 64, 1, "wild", False), (4099, 160, 2, "pad", False),
+              (20_001, 320, 3, "distinct", False), (3, 7, 1, "mixed", False), (4096, 45, 0, "mixed", True),
+              (2, 1, 2, "wild", False), (100_003, 9, 0, "pad", False), (1001, 300, 1, "shared", False)]
+
+
+@pytest.mark.parametrize("n,n_pat,offset,kind,all_pad", BANK_CASES)
+def test_triple_match_words_slot_masks_equal_plain(card, n, n_pat, offset, kind, all_pad):
+    spo, pats = bank_case(np.random.default_rng(n + n_pat), n + offset, n_pat, kind)
+    if all_pad:
+        spo[:] = PAD
+    t_spo = torch.as_tensor(spo, device=card)[offset:]  # contiguous, its base offset by whole rows
+    got = triple_match_words.triple_match_words_cuda(t_spo, torch.as_tensor(pats, device=card))
+    want = ref.pattern_bitmask_words_ref(torch.as_tensor(spo[offset:]), torch.as_tensor(pats))
+    assert tuple(got.shape) == (n, max(1, -(-n_pat // 32)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# BANK_CASES with (n_seg, seg bits drawn): 1, 2, 3 and 32 segments, bits above
+# n_seg, a fifth of the rows in no segment, seg's base offset otherwise than
+# the rows' (its scalar loads)
+SEG_BANK_CASES = [case + seg for case, seg in zip(BANK_CASES, [(1, 3), (2, 2), (32, 32), (2, 5), (32, 30), (3, 3),
+                                                               (1, 1), (2, 2), (3, 32)])]
+
+
+@pytest.mark.parametrize("n,n_pat,offset,kind,all_pad,n_seg,bits", SEG_BANK_CASES)
+def test_triple_match_words_segmented_slot_masks_equal_plain(card, n, n_pat, offset, kind, all_pad, n_seg, bits):
+    rng = np.random.default_rng(n + n_pat + n_seg)
+    spo, pats = bank_case(rng, n + offset, n_pat, kind)
+    if all_pad:
+        spo[:] = PAD
+    seg = rng.integers(-(1 << 31), (1 << 31) - 1, size=n + 4).astype(np.int32)
+    if bits < 32:
+        seg &= (1 << bits) - 1  # bits above n_seg are ignored
+    seg[rng.random(n + 4) < 0.2] = 0
+    seg_offset = (offset + 1) % 4
+    args = [torch.as_tensor(spo[offset:]), torch.as_tensor(pats), torch.as_tensor(seg[seg_offset:seg_offset + n])]
+    dev = [torch.as_tensor(spo, device=card)[offset:], args[1].to(card),
+           torch.as_tensor(seg, device=card)[seg_offset:seg_offset + n]]
+    got = triple_match_words_segmented.triple_match_words_segmented_cuda(*dev, n_seg)
+    want = ref.pattern_bitmask_words_segmented_ref(*args, n_seg)
+    assert tuple(got.shape) == (n_seg, n, max(1, -(-n_pat // 32)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("n,n_pat,vp,n_virt,planes,shared", [(1, 7, 1, 1, 1, True), (4097, 64, 31, 20, 2, True),
                                                              (4095, 64, 32, 32, 3, False),
                                                              (100_003, 160, 33, 9, 2, True),

@@ -3,10 +3,15 @@
 K1 (triple_match) against ``triple_match_pallas`` in interpret mode and the
 ``pattern_bitmask_ref`` oracle; K2/K3 (merge_probe) left and right against
 ``merge_probe_ref``, ``ops.merge_probe(use_kernel=True)`` and
-``searchsorted_rows``, and its range mode against ``triples.prefix_range``.
+``searchsorted_rows``, and its range mode against ``triples.prefix_range``;
+K4 and K6 (bank words, plain and segmented) against
+``triple_match_words_pallas`` and ``triple_match_words_segmented_pallas`` in
+interpret mode on the card tests' edge banks.
 The CUDA kernels themselves are held against these plain versions on the
 card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
+import shutil
+
 import numpy as np
 import pytest
 
@@ -22,6 +27,7 @@ from repro.kernels.triple_match import BLOCK_ROWS, triple_match_pallas  # noqa: 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import triples as tcore_triples  # noqa: E402
 from repro_torch.kernels import build, merge_join, ops, ref, triple_match  # noqa: E402
+from test_torch_cuda import bank_case  # noqa: E402
 
 PAD = int(np.iinfo(np.int32).max)
 TILE = 128 * BLOCK_ROWS  # the TPU kernel's 4096-row tile
@@ -233,6 +239,28 @@ def test_merge_probe_tile_constants_match_the_source():
 
 
 # ---------------------------------------------------------------------------
+# K4 and K6: bank words, plain and segmented
+# ---------------------------------------------------------------------------
+
+# (bank kind, P): many slots sharing one constant, wildcard-only slots,
+# all-PAD slots and slots PAD at one position (of rows PAD there too); W = 1
+# and 2, at most 64 bank rows (the interpret-mode kernels are slow for wider
+# banks)
+@pytest.mark.parametrize("kind,n_pat", [("shared", 12), ("pad", 7), ("wild", 33), ("pad", 36)])
+def test_bank_words_plain_equal_pallas_interpret_on_edge_banks(kind, n_pat):
+    rng = np.random.default_rng(n_pat)
+    spo, pats = bank_case(rng, 1001, n_pat, kind)
+    seg = rng.integers(0, 1 << 3, size=1001).astype(np.int32)
+    got = ops.pattern_bitmask_words(torch.as_tensor(spo), torch.as_tensor(pats))
+    want = np.asarray(jops.pattern_bitmask_words(jnp.asarray(spo), jnp.asarray(pats), use_kernel=True))
+    np.testing.assert_array_equal(as_u32(got), want)
+    got = ops.pattern_bitmask_words_segmented(torch.as_tensor(spo), torch.as_tensor(pats), torch.as_tensor(seg), 2)
+    want = np.asarray(jops.pattern_bitmask_words_segmented(jnp.asarray(spo), jnp.asarray(pats), jnp.asarray(seg), 2,
+                                                           use_kernel=True))
+    np.testing.assert_array_equal(as_u32(got), want)
+
+
+# ---------------------------------------------------------------------------
 # dispatch, counters and the build, without a card
 # ---------------------------------------------------------------------------
 
@@ -267,6 +295,19 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices():
         ops.pattern_bitmask(meta, meta[:1])
     with pytest.raises(ValueError):
         ops.merge_probe(meta, meta)
+
+
+def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
+    """Editing the header the bank-words kernels share rebuilds both."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    names = ("triple_match_words", "triple_match_words_segmented")
+    before = {name: build.library_path(name) for name in names}
+    header = csrc / "bank_slot_masks.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    for name in names:
+        assert build.library_path(name) != before[name]
 
 
 def test_build_targets_hopper_from_repo_sources():
