@@ -24,7 +24,11 @@ Phases, each fatal on failure:
    with many slots sharing one constant, 320 distinct constants at one
    position, wildcard-only, all-PAD and partly PAD slots, W = 1, 2, 5 and
    10, bases offset by 1-3 rows, N % 4 of 1-3, N below one group, all-PAD
-   rows, 1, 2, 3 and 32 segments, rows of no segment).
+   rows, 1, 2, 3 and 32 segments, rows of no segment; K5's row stream at
+   N % 4 of 1-3 (each member its own alignment), N < 4, bases offset by a
+   row and sliced along R, nt of 0 and 32, lanes outside the bank,
+   lex-sorted PAD-tailed and all-PAD members, every member inactive, more
+   members than the grid holds blocks, several staging chunks).
 3. small: the paper's running example, and a small id-space stream with the
    Football and Location interests, through ``IrapEngine`` on the card; every
    named set equals the pure-Python oracle's; then both through the default
@@ -52,7 +56,8 @@ Phases, each fatal on failure:
    probe once more with the prefix queries shuffled and in range mode
    against two single-side launches; the launch floor (a one-element fill
    timed the same way; K4's, K6's and K7's restated bounds beside their old
-   per-slot ones); one JSON line ``{"kernels": [...]}``. Then one
+   per-slot ones; K5 at the broker's widest lanes pass too); one JSON line
+   ``{"kernels": [...]}``. Then one
    more changeset per interest, and one more broker fire, under
    ``torch.profiler``: the device's busy share and where its time goes.
 
@@ -613,7 +618,7 @@ def bank_kernel_cases(device, rng) -> int:
     W = 1, 2 and 5; P not a multiple of 32 with bit 31 set; all-PAD bank rows
     and PAD rows; 1, 4095, 4097 and ~10^5 rows; inactive members; nt = 1 and
     32; lanes in the last word. Then K4 at BANK_CASES, the slot-mask
-    design's paths."""
+    design's paths, and K5 at LANES_EDGE_CASES, its row stream's paths."""
     import torch
     from repro_torch.kernels import ref, triple_match_lanes, triple_match_words
 
@@ -667,6 +672,15 @@ def bank_kernel_cases(device, rng) -> int:
         want = ref.pattern_lane_bits_ref(spo_b, pats, lanes, active)
         check(torch.equal(got, want), f"triple_match_lanes != plain at R={r} n={n} nt={nt}")
         check(bool((got[torch.as_tensor(~active_np, device=device)] == 0).all()), "inactive members give 0")
+        cases += 1
+    for r, n, n_pat, nt, offset, inactive, kind in LANES_EDGE_CASES:
+        rows_np, pats_np, lanes_np, active_np = lanes_case(rng, r, n, n_pat, nt, offset, inactive, kind)
+        spo_b = torch.as_tensor(rows_np, device=device)[offset:].view(r, n, 3)  # its base offset by whole rows
+        pats, lanes = torch.as_tensor(pats_np, device=device), torch.as_tensor(lanes_np, device=device)
+        active = torch.as_tensor(active_np, device=device)
+        got = triple_match_lanes.triple_match_lanes_cuda(spo_b, pats, lanes, active)
+        check(torch.equal(got, ref.pattern_lane_bits_ref(spo_b, pats, lanes, active)),
+              f"triple_match_lanes != plain at R={r} n={n} P={n_pat} nt={nt} offset={offset} kind={kind}")
         cases += 1
     return cases
 
@@ -802,6 +816,57 @@ def bank_case(rng, n, n_pat, kind):
         spo[hit] = np.where(src == -1, spo[hit], src)
     spo[rng.random(n) < 0.1] = pad
     return spo, pats
+
+
+# K5's row-stream paths, (members, rows, bank rows, nt, base offset in rows,
+# inactive members, kind): N % 4 of 1, 2 and 3 (each member its own
+# alignment: scalar heads and tails, unaligned stores); N < 4; bases offset
+# by a row, and a cohort sliced along R (spo_b[1:] of one more member); nt = 0
+# and 32; lanes outside the bank; every member inactive; more members than
+# the grid holds blocks, in six staging chunks; R nt = 1,280 (two chunks)
+LANES_EDGE_CASES = [(5, 4097, 64, 3, 0, (1,), "sorted"), (4, 4098, 32, 6, 0, (), "random"),
+                    (6, 4099, 45, 32, 0, (0, 5), "sorted"), (3, 3, 32, 4, 0, (), "random"),
+                    (2, 1, 7, 2, 1, (), "random"), (5, 4096, 64, 3, 1, (2,), "sorted"),
+                    (4, 4097, 40, 5, 4097, (3,), "random"), (3, 1000, 32, 0, 0, (), "random"),
+                    (4, 4096, 40, 8, 0, (), "lanes_out"), (4, 2048, 32, 32, 0, (0, 1, 2, 3), "random"),
+                    (2000, 1001, 32, 3, 0, tuple(range(1, 2000, 3)), "random"),
+                    (40, 1001, 64, 32, 2, (3, 39), "sorted")]
+
+
+def lanes_case(rng, r, n, n_pat, nt, offset, inactive, kind):
+    """A cohort for K5's row stream: rows int32[offset + r n, 3] (the cohort
+    is ``rows[offset:]`` seen as [r, n, 3]), a bank with all-wildcard rows and
+    all-PAD rows (tombstones, padding), lanes and a member mask. Half of the
+    rows carry a routed bank row's constants and a tenth are PAD. ``kind``:
+    "random" rows; "sorted" (each member's rows a lex-sorted set with a PAD
+    tail, as the broker stacks its stores; member 0 all PAD); "lanes_out" (a
+    third of the lanes below 0, or at and past n_pat, where they match
+    nothing)."""
+    pad = np.iinfo(np.int32).max
+    pats = rng.integers(-1, 6, size=(n_pat, 3)).astype(np.int32)
+    pats[::5] = -1
+    pats[1::7] = pad
+    lanes = rng.integers(0, n_pat, size=(r, nt)).astype(np.int32)
+    if kind == "lanes_out":
+        out = rng.random((r, nt)) < 1 / 3
+        far = np.array([-(1 << 31), -33, -1, n_pat, n_pat + 1, 32 * -(-n_pat // 32), 1 << 30], np.int32)
+        lanes[out] = rng.choice(far, size=int(out.sum()))
+    spo = rng.integers(0, 1000, size=(r, n, 3)).astype(np.int32)
+    if n_pat and nt:
+        hit = rng.random((r, n)) < 0.5
+        src = pats[np.clip(lanes[np.nonzero(hit)[0], rng.integers(0, nt, size=int(hit.sum()))], 0, n_pat - 1)]
+        spo[hit] = np.where(src == -1, spo[hit], src)
+    spo[rng.random((r, n)) < 0.1] = pad
+    if kind == "sorted":
+        for k in range(r):
+            rows = np.unique(spo[k][(spo[k] != pad).all(axis=1)], axis=0)
+            n_valid = 0 if k == 0 else int(rng.integers(rows.shape[0] // 2, rows.shape[0] + 1))
+            spo[k, :n_valid] = rows[:n_valid]
+            spo[k, n_valid:] = pad
+    rows = np.concatenate([rng.integers(0, 1000, size=(offset, 3)).astype(np.int32), spo.reshape(-1, 3)])
+    active = np.ones(r, bool)
+    active[list(inactive)] = False
+    return rows, pats, lanes, active
 
 
 # K7's slot-mask paths, (n, W, Vp, planes, shared rows, constants a slot,
@@ -1167,16 +1232,18 @@ def plain_ops():
 class BankCallRecorder:
     """Records the shapes of the broker's bank kernel calls, and keeps the
     inputs the timing phase measures: the last words, segmented and refine
-    passes (the flush's) and the widest lanes pass of a 3-pattern (category)
-    cohort. With a list ``mem``, each lanes pass (one a cohort pass, at its
-    start) appends ("pass", (Ncp, n_i, nt, active), peak bytes allocated so
-    far)."""
+    passes (the flush's), the widest lanes pass of a 3-pattern (category)
+    cohort and the widest lanes pass by bytes (active members' rows read,
+    every member's words written). With a list ``mem``, each lanes pass
+    (one a cohort pass, at its start) appends ("pass", (Ncp, n_i, nt,
+    active), peak bytes allocated so far)."""
 
     NAMES = ("pattern_bitmask_words", "pattern_lane_bits_batched", "pattern_bitmask_words_segmented", "lane_refine")
 
     def __init__(self, mem=None):
         self.words_shapes, self.lanes_shapes, self.seg_shapes, self.refine_shapes = [], [], [], []
         self.words_args = self.lanes_args = self.seg_args = self.refine_args = None
+        self.lanes_wide_args, self.lanes_wide_bytes = None, -1
         self.mem = mem
 
     def __enter__(self):
@@ -1200,6 +1267,9 @@ class BankCallRecorder:
             best = self.lanes_args
             if lanes.shape[1] == 3 and (best is None or spo_b.shape[0] > best[0].shape[0]):
                 self.lanes_args = (spo_b, patterns, lanes, active)
+            n_bytes = spo_b.shape[1] * (12 * n_active + 4 * spo_b.shape[0])
+            if n_bytes > self.lanes_wide_bytes:
+                self.lanes_wide_args, self.lanes_wide_bytes = (spo_b, patterns, lanes, active), n_bytes
             return lanes_fn(spo_b, patterns, lanes, active, matcher=matcher)
 
         def rec_seg(spo, patterns, seg, n_seg, matcher=None):
@@ -1675,11 +1745,12 @@ def phase_timing(tcore, device, subs, changesets, launches):
 
 
 def bank_timing(rec, launches, flush):
-    """K4 at the flush fire's deleted-side shape and K5 at the category
-    cohort's widest added-side shape, as the broker's main path gave them."""
+    """K4 at the flush fire's deleted-side shape, and K5 at the category
+    cohort's widest added-side shape and at the broker's widest lanes pass
+    by bytes, as the broker's main path gave them."""
     import torch
     from repro_torch.core.triples import PAD
-    from repro_torch.kernels import ref, triple_match_lanes, triple_match_words
+    from repro_torch.kernels import ref, triple_match_words
 
     spo, bank = rec.words_args
     n, n_pat = spo.shape[0], bank.shape[0]
@@ -1712,29 +1783,49 @@ def bank_timing(rec, launches, flush):
         f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}); old per-slot bound {k4['old_bound_ms']:.4f} ms "
         f"({k4['old_bound_by']})")
 
-    spo_b, bank, lanes, active = rec.lanes_args
+    k5 = {
+        "name": "triple_match_lanes", "route": "cuda", "source": "src/repro_torch/csrc/triple_match_lanes.cu",
+        "replaces": "src/repro/kernels/triple_match.py:373", "launches": launches["triple_match_lanes"],
+    }
+    table = lanes_timing(rec.lanes_args, flush)
+    k5.update((key, table[key]) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"))
+    k5["library_ms"] = None  # no single PyTorch call computes lane-routed bank bits
+    log(f"timing: triple_match_lanes R={table['r']} ({table['active']} active, {table['valid_rows']:,} valid rows) "
+        f"N={table['n']:,} nt={table['nt']}: {k5['ms']:.4f} ms, "
+        f"plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    # the widest lanes pass by bytes, where the launch floor is a small share
+    wide = k5["widest_pass"] = lanes_timing(rec.lanes_wide_args, flush)
+    log(f"timing: triple_match_lanes at the widest pass R={wide['r']} ({wide['active']} active, "
+        f"{wide['valid_rows']:,} valid rows) N={wide['n']:,} nt={wide['nt']}: {wide['ms']:.4f} ms, "
+        f"plain {wide['plain_ms']:.4f} ms, bound {wide['bound_ms']:.4f} ms ({wide['bound_by']}, "
+        f"{wide['bound_ms'] / wide['ms']:.1%} of it)")
+    torch.cuda.synchronize()
+    return [k4, k5]
+
+
+def lanes_timing(args, flush) -> dict:
+    """K5 on one lanes pass's inputs, as the broker's main path gave them:
+    its time, its plain version's and its bound, with the pass's shape."""
+    import torch
+    from repro_torch.core.triples import PAD
+    from repro_torch.kernels import ref, triple_match_lanes
+
+    spo_b, bank, lanes, active = args
     r, n, nt = spo_b.shape[0], spo_b.shape[1], lanes.shape[1]
+    if active is None:
+        active = torch.ones(r, dtype=torch.int32, device=spo_b.device)
     r_active = int(active.sum())
     n_valid = int(((spo_b[..., 0] != PAD) & (active[:, None] != 0)).sum())
     got = triple_match_lanes.triple_match_lanes_cuda(spo_b, bank, lanes, active)
     err = int((got.long() - ref.pattern_lane_bits_ref(spo_b, bank, lanes, active).long()).abs().max())
-    check(err == 0, "triple_match_lanes at the main-path shape")
-    k5 = {
-        "name": "triple_match_lanes", "route": "cuda", "source": "src/repro_torch/csrc/triple_match_lanes.cu",
-        "replaces": "src/repro/kernels/triple_match.py:373", "launches": launches["triple_match_lanes"],
-        "max_abs_err": err,
-        "ms": time_cuda(lambda: triple_match_lanes.triple_match_lanes_cuda(spo_b, bank, lanes, active), 50, flush),
-        "plain_ms": time_cuda(lambda: ref.pattern_lane_bits_ref(spo_b, bank, lanes, active), 10, flush),
-    }
+    check(err == 0, f"triple_match_lanes at the main-path shape R={r} N={n} nt={nt}")
+    row = {"r": r, "n": n, "nt": nt, "active": r_active, "valid_rows": n_valid, "max_abs_err": err,
+           "ms": time_cuda(lambda: triple_match_lanes.triple_match_lanes_cuda(spo_b, bank, lanes, active), 50, flush),
+           "plain_ms": time_cuda(lambda: ref.pattern_lane_bits_ref(spo_b, bank, lanes, active), 10, flush)}
     # active members' rows read once, every member's word written once; the
     # nt compares only for active members' valid rows
-    k5["bound_ms"], k5["bound_by"] = bound(r_active * n * 12 + r * n * 4, n_valid * nt * 7)
-    k5["library_ms"] = None  # no single PyTorch call computes lane-routed bank bits
-    log(f"timing: triple_match_lanes R={r} ({r_active} active, {n_valid:,} valid rows) N={n:,} nt={nt}: "
-        f"{k5['ms']:.4f} ms, "
-        f"plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
-    torch.cuda.synchronize()
-    return [k4, k5]
+    row["bound_ms"], row["bound_by"] = bound(r_active * n * 12 + r * n * 4, n_valid * nt * 7)
+    return row
 
 
 def chain_timing(rec, launches, flush):

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K4, K6 and K7 kernels against another tree's, on one CUDA card.
+"""Time the port's K1, K4, K5, K6 and K7 kernels against another tree's, on one CUDA card.
 
     python3 experiments/torch_kernel_ab.py --old DIR
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive``). The script builds
 ``csrc/triple_match.cu`` (K1), ``csrc/triple_match_words.cu`` (K4),
-``csrc/triple_match_words_segmented.cu`` (K6) and ``csrc/lane_refine.cu``
-(K7) of this tree through ``repro_torch.kernels.build`` and those of ``DIR``
+``csrc/triple_match_lanes.cu`` (K5), ``csrc/triple_match_words_segmented.cu``
+(K6) and ``csrc/lane_refine.cu`` (K7) of this tree through ``repro_torch.kernels.build`` and those of ``DIR``
 with the same ``nvcc`` flags, checks both against the plain versions, and
 times them in turns (old, new, new, old) at synthetic shapes of the main
 path:
@@ -16,6 +16,11 @@ path:
 - K4: a single-frontier fire's deleted side, N = 131,072 rows of which
   100,974 are valid (a PAD tail), a bank of 32 rows with 9 live (constants
   at p and o, the rest all-PAD padding), W = 1;
+- K5: the category cohort's added side, R = 32 members of which 20 are
+  active, N = 196,608 rows a member, each active member a PAD-tailed store
+  holding about half of them (~51% of the active rows valid), nt = 3 lanes
+  into a bank of 96 rows; and the broker's widest lanes pass by bytes, R =
+  16 with 10 active, N = 786,432;
 - K6: the flush's union, N = 524,288 rows of which 403,925 are valid, the
   same bank, n_seg = 2 with membership bits 0-2 drawn per row;
 - K7: F = 2 planes over N = 524,288 shared rows (a quarter PAD), W = 1 with 9
@@ -59,13 +64,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab.py needs a CUDA device", file=sys.stderr)
         return 3
-    from repro_torch.kernels import (build, lane_refine, ref, triple_match, triple_match_words,
+    from repro_torch.kernels import (build, lane_refine, ref, triple_match, triple_match_lanes, triple_match_words,
                                      triple_match_words_segmented)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
     wrappers = {"triple_match": triple_match, "triple_match_words": triple_match_words,
+                "triple_match_lanes": triple_match_lanes,
                 "triple_match_words_segmented": triple_match_words_segmented, "lane_refine": lane_refine}
     build.build(list(wrappers))
     out_dir = REPO / "build" / "kernels_ab"
@@ -178,6 +184,47 @@ def main(argv=None) -> int:
     def k6_new():
         return triple_match_words_segmented.triple_match_words_segmented_cuda(s6, t_bank, g6, 2)
 
+    # K5: each active member a PAD-tailed store of about half its N rows,
+    # a third of them carrying its lanes' constants; inactive members all PAD
+    bank5 = np.full((96, 3), PAD, np.int32)
+    bank5[:, 0] = -1
+    bank5[:, 1] = rng.integers(0, 10, 96)
+    bank5[::2, 2] = -1
+    bank5[1::2, 2] = rng.integers(95, 110, 48)
+    t_bank5 = torch.as_tensor(bank5, device=dev)
+
+    def lanes_cohort(r, n, n_active):
+        lanes = rng.integers(0, 96, size=(r, 3)).astype(np.int32)
+        active = np.zeros(r, np.int32)
+        active[:n_active] = 1
+        spo = np.full((r, n, 3), PAD, np.int32)
+        for k in range(n_active):
+            valid = int(n * rng.uniform(0.45, 0.57))
+            rows = np.stack([np.sort(rng.integers(0, 1 << 24, valid)), rng.integers(0, 10, valid),
+                             rng.integers(95, 110, valid)], 1)
+            hit = rng.random(valid) < 1 / 3
+            pats = bank5[lanes[k, rng.integers(0, 3, int(hit.sum()))]]
+            rows[hit] = np.where(pats == -1, rows[hit], pats)
+            spo[k, :valid] = rows
+        return [torch.as_tensor(x, device=dev) for x in (spo, lanes, active)]
+
+    lanes_shapes = {"K5": (32, 196_608, 20), "K5 wide": (16, 786_432, 10)}
+    cohorts = {label: lanes_cohort(*shape) for label, shape in lanes_shapes.items()}
+    want5 = {label: ref.pattern_lane_bits_ref(s, t_bank5, ln, a) for label, (s, ln, a) in cohorts.items()}
+    o5 = {label: torch.empty_like(w) for label, w in want5.items()}
+
+    def k5_old(label):
+        s, ln, a = cohorts[label]
+        if old["triple_match_lanes"](s.data_ptr(), s.shape[0], s.shape[1], t_bank5.data_ptr(), 96, ln.data_ptr(),
+                                     3, a.data_ptr(), o5[label].data_ptr(), stream()) != 0:
+            raise RuntimeError("old triple_match_lanes launch")
+
+    def k5_new(label):
+        s, ln, a = cohorts[label]
+        return triple_match_lanes.triple_match_lanes_cuda(s, t_bank5, ln, a)
+
+    for label in cohorts:
+        k5_old(label)
     k1_old()
     k4_old()
     k6_old()
@@ -185,6 +232,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     for label, got, want in [("K1 old", o1, want1), ("K1 new", triple_match.triple_match_cuda(s1, p1), want1),
                              ("K4 old", o4, want4), ("K4 new", k4_new(), want4),
+                             ("K5 old", o5["K5"], want5["K5"]), ("K5 new", k5_new("K5"), want5["K5"]),
+                             ("K5 wide old", o5["K5 wide"], want5["K5 wide"]),
+                             ("K5 wide new", k5_new("K5 wide"), want5["K5 wide"]),
                              ("K6 old", o6, want6), ("K6 new", k6_new(), want6),
                              ("K7 old", o7, want7), ("K7 new", lane_refine.lane_refine_cuda(*a7), want7)]:
         if not torch.equal(got, want):
@@ -201,12 +251,18 @@ def main(argv=None) -> int:
     k4_bytes = n4 * 16 + 32 * 12
     k6_bytes = n6 * 16 + 2 * n6 * 4 + 32 * 12
     k7_bytes = n7 * 12 + f7 * n7 * (4 + 8) + 64 * 16
+    # K5: the active members' rows read once, every member's words written once
+    k5_bytes = {label: n_active * n * 12 + r * n * 4 for label, (r, n, n_active) in lanes_shapes.items()}
     cases = {
         "floor": lambda: one.fill_(0),
         "copy of K1's bytes": copy_of(k1_bytes),
         "K1 old": k1_old, "K1 new": lambda: triple_match.triple_match_cuda(s1, p1),
         "copy of K4's bytes": copy_of(k4_bytes),
         "K4 old": k4_old, "K4 new": k4_new,
+        "copy of K5's bytes": copy_of(k5_bytes["K5"]),
+        "K5 old": lambda: k5_old("K5"), "K5 new": lambda: k5_new("K5"),
+        "copy of K5 wide's bytes": copy_of(k5_bytes["K5 wide"]),
+        "K5 wide old": lambda: k5_old("K5 wide"), "K5 wide new": lambda: k5_new("K5 wide"),
         "copy of K6's bytes": copy_of(k6_bytes),
         "K6 old": k6_old, "K6 new": k6_new,
         "copy of K7's bytes": copy_of(k7_bytes),
@@ -215,9 +271,11 @@ def main(argv=None) -> int:
     result = {"card": card}
     for mode, flush in flushes.items():
         row = {}
-        for label in ("floor", "copy of K1's bytes", "copy of K4's bytes", "copy of K6's bytes", "copy of K7's bytes"):
+        for label in ("floor", "copy of K1's bytes", "copy of K4's bytes", "copy of K5's bytes",
+                      "copy of K5 wide's bytes", "copy of K6's bytes", "copy of K7's bytes"):
             row[label] = timed(cases[label], flush)
-        for pair in (("K1 old", "K1 new"), ("K4 old", "K4 new"), ("K6 old", "K6 new"), ("K7 old", "K7 new")):
+        for pair in (("K1 old", "K1 new"), ("K4 old", "K4 new"), ("K5 old", "K5 new"), ("K5 wide old", "K5 wide new"),
+                     ("K6 old", "K6 new"), ("K7 old", "K7 new")):
             first = {label: timed(cases[label], flush) for label in pair}
             second = {label: timed(cases[label], flush) for label in reversed(pair)}
             for label in pair:

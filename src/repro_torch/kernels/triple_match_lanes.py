@@ -5,13 +5,14 @@ Replaces ``repro/kernels/triple_match.py::triple_match_lanes_pallas`` (the
 TPU kernel K5): the broker's added-side pass over a member-stacked cohort.
 Bit ``j`` of ``out[k, i]`` is set iff row ``spo_b[k, i]`` matches bank row
 ``lanes[k, j]``; inactive members (cohort padding) give 0. The CUDA source
-is ``csrc/triple_match_lanes.cu``: a grid of (row blocks, member), each
-block gathering its member's ``nt <= 32`` routed bank rows into shared
-memory and each thread matching one row against them, so a row costs ``nt``
-compares instead of the TPU kernel's ``32W`` plus routing. Its bound on an
-H100 is memory: 12 bytes a row of every active member read, 4 bytes a row
-of every member written. The plain version is
-:func:`repro_torch.kernels.ref.pattern_lane_bits_ref`.
+is ``csrc/triple_match_lanes.cu``: a persistent grid whose blocks stage
+every member's ``nt <= 32`` routed bank rows in shared memory once, and
+whose threads stream (member, 4-row group) items: three 16-byte loads (the
+next group's in flight), ``nt`` compares a row instead of the TPU kernel's
+``32W`` plus routing, one 16-byte store; inactive members take zero stores
+and no loads. Its bound on an H100 is memory: 12 bytes a row of every
+active member read, 4 bytes a row of every member written. The plain
+version is :func:`repro_torch.kernels.ref.pattern_lane_bits_ref`.
 
 ``launches`` counts the kernel launches of this process.
 """
@@ -26,7 +27,7 @@ from . import build
 launches = 0
 _fn = None
 MAX_TARGETS = 32
-MAX_MEMBERS = 65535  # the grid's second dimension
+MAX_MEMBERS = 65535  # members a launch takes
 
 
 def _entry():

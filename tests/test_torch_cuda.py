@@ -394,6 +394,70 @@ def test_lane_refine_slot_masks_equal_plain(card, n, w, vp, planes, shared, n_co
     np.testing.assert_array_equal(got.cpu().numpy(), ref.lane_refine_ref(*args).numpy())
 
 
+def lanes_case(rng, r, n, n_pat, nt, offset, inactive, kind):
+    """A cohort for the lanes kernel's row stream: rows int32[offset + r n, 3]
+    (the cohort is ``rows[offset:]`` seen as [r, n, 3]), a bank with
+    all-wildcard rows and all-PAD rows (tombstones, padding), lanes and a
+    member mask. Half of the rows carry a routed bank row's constants and a
+    tenth are PAD. ``kind``: "random" rows; "sorted" (each member's rows a
+    lex-sorted set with a PAD tail, as the broker stacks its stores; member 0
+    all PAD); "lanes_out" (a third of the lanes below 0, or at and past
+    n_pat, where they match nothing)."""
+    pats = rng.integers(-1, 6, size=(n_pat, 3)).astype(np.int32)
+    pats[::5] = -1
+    pats[1::7] = PAD
+    lanes = rng.integers(0, n_pat, size=(r, nt)).astype(np.int32)
+    if kind == "lanes_out":
+        out = rng.random((r, nt)) < 1 / 3
+        far = np.array([-(1 << 31), -33, -1, n_pat, n_pat + 1, 32 * -(-n_pat // 32), 1 << 30], np.int32)
+        lanes[out] = rng.choice(far, size=int(out.sum()))
+    spo = rng.integers(0, 1000, size=(r, n, 3)).astype(np.int32)
+    if n_pat and nt:
+        hit = rng.random((r, n)) < 0.5
+        src = pats[np.clip(lanes[np.nonzero(hit)[0], rng.integers(0, nt, size=int(hit.sum()))], 0, n_pat - 1)]
+        spo[hit] = np.where(src == -1, spo[hit], src)
+    spo[rng.random((r, n)) < 0.1] = PAD
+    if kind == "sorted":
+        for k in range(r):
+            rows = np.unique(spo[k][(spo[k] != PAD).all(axis=1)], axis=0)
+            n_valid = 0 if k == 0 else int(rng.integers(rows.shape[0] // 2, rows.shape[0] + 1))
+            spo[k, :n_valid] = rows[:n_valid]
+            spo[k, n_valid:] = PAD
+    rows = np.concatenate([rng.integers(0, 1000, size=(offset, 3)).astype(np.int32), spo.reshape(-1, 3)])
+    active = np.ones(r, bool)
+    active[list(inactive)] = False
+    return rows, pats, lanes, active
+
+
+# The lanes kernel's row-stream paths, (members, rows, bank rows, nt, base
+# offset in rows, inactive members, kind): N % 4 of 1, 2 and 3 (each member
+# its own alignment: scalar heads and tails, unaligned stores); N < 4 (scalar
+# rows only); bases offset by a row, and a cohort sliced along R (spo_b[1:]
+# of one more member); nt = 0 and 32; lanes outside the bank; every member
+# inactive; more members than the grid holds blocks, in six staging chunks;
+# R nt = 1,280 (two chunks of routed rows)
+LANES_EDGE_CASES = [(5, 4097, 64, 3, 0, (1,), "sorted"), (4, 4098, 32, 6, 0, (), "random"),
+                    (6, 4099, 45, 32, 0, (0, 5), "sorted"), (3, 3, 32, 4, 0, (), "random"),
+                    (2, 1, 7, 2, 1, (), "random"), (5, 4096, 64, 3, 1, (2,), "sorted"),
+                    (4, 4097, 40, 5, 4097, (3,), "random"), (3, 1000, 32, 0, 0, (), "random"),
+                    (4, 4096, 40, 8, 0, (), "lanes_out"), (4, 2048, 32, 32, 0, (0, 1, 2, 3), "random"),
+                    (2000, 1001, 32, 3, 0, tuple(range(1, 2000, 3)), "random"),
+                    (40, 1001, 64, 32, 2, (3, 39), "sorted")]
+
+
+@pytest.mark.parametrize("r,n,n_pat,nt,offset,inactive,kind", LANES_EDGE_CASES)
+def test_triple_match_lanes_row_stream_edges_equal_plain(card, r, n, n_pat, nt, offset, inactive, kind):
+    rows, pats, lanes, active = lanes_case(np.random.default_rng(r * n + nt), r, n, n_pat, nt, offset, inactive,
+                                           kind)
+    args = [torch.as_tensor(rows[offset:]).view(r, n, 3)] + [torch.as_tensor(x) for x in (pats, lanes, active)]
+    spo_b = torch.as_tensor(rows, device=card)[offset:].view(r, n, 3)  # contiguous, its base offset by whole rows
+    got = triple_match_lanes.triple_match_lanes_cuda(spo_b, *(a.to(card) for a in args[1:]))
+    want = ref.pattern_lane_bits_ref(*args)
+    assert tuple(got.shape) == (r, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want.numpy()[~active] == 0).all()
+
+
 def test_broker_on_the_card_equals_the_cpu(card):
     """Three subscribers, two of them deferred, through Broker on both devices."""
     d = tcore.Dictionary()

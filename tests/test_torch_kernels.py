@@ -6,7 +6,9 @@ K1 (triple_match) against ``triple_match_pallas`` in interpret mode and the
 ``searchsorted_rows``, and its range mode against ``triples.prefix_range``;
 K4 and K6 (bank words, plain and segmented) against
 ``triple_match_words_pallas`` and ``triple_match_words_segmented_pallas`` in
-interpret mode on the card tests' edge banks.
+interpret mode on the card tests' edge banks; K5 (lane bits) against
+``triple_match_lanes_pallas`` in interpret mode and ``pattern_lane_bits_ref``
+on the card tests' edge cohorts.
 The CUDA kernels themselves are held against these plain versions on the
 card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
@@ -23,11 +25,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import triples as jt  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro.kernels.triple_match import BLOCK_ROWS, triple_match_pallas  # noqa: E402
+from repro.kernels.triple_match import BLOCK_ROWS, triple_match_lanes_pallas, triple_match_pallas  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import triples as tcore_triples  # noqa: E402
 from repro_torch.kernels import build, merge_join, ops, ref, triple_match  # noqa: E402
-from test_torch_cuda import bank_case  # noqa: E402
+from test_torch_cuda import bank_case, lanes_case  # noqa: E402
 
 PAD = int(np.iinfo(np.int32).max)
 TILE = 128 * BLOCK_ROWS  # the TPU kernel's 4096-row tile
@@ -259,6 +261,34 @@ def test_bank_words_plain_equal_pallas_interpret_on_edge_banks(kind, n_pat):
                                                            use_kernel=True))
     np.testing.assert_array_equal(as_u32(got), want)
 
+
+
+# ---------------------------------------------------------------------------
+# K5: bank match + lane routing + member mask
+# ---------------------------------------------------------------------------
+
+# (members, rows, bank rows, nt, inactive members, rows kind, held against):
+# one TPU tile of lex-sorted PAD-tailed members (one all PAD) with nt = 32
+# across W = 2 and an inactive member, and random rows over all-wildcard and
+# PAD bank rows, against the TPU kernel in interpret mode; N % 4 = 1 and
+# N < 4, which the TPU kernel does not take, against the JAX oracle
+LANES_PALLAS_CASES = [(3, TILE, 64, 32, (1,), "sorted", "pallas"), (2, TILE, 45, 6, (), "random", "pallas"),
+                      (5, 4097, 64, 3, (1,), "sorted", "oracle"), (3, 3, 32, 4, (0,), "random", "oracle")]
+
+
+@pytest.mark.parametrize("r,n,n_pat,nt,inactive,kind,against", LANES_PALLAS_CASES)
+def test_lane_bits_plain_equal_pallas_interpret_on_edge_cohorts(r, n, n_pat, nt, inactive, kind, against):
+    rows, pats, lanes, active = lanes_case(np.random.default_rng(r * n + nt), r, n, n_pat, nt, 0, inactive, kind)
+    spo_b = rows.reshape(r, n, 3)
+    got = ops.pattern_lane_bits_batched(*(torch.as_tensor(x) for x in (spo_b, pats, lanes, active)))
+    if against == "pallas":
+        want = triple_match_lanes_pallas(jnp.asarray(spo_b), jnp.asarray(pats), jnp.asarray(lanes),
+                                         jnp.asarray(active.astype(np.int32).reshape(r, 1)), interpret=True)
+    else:
+        want = jref.pattern_lane_bits_ref(jnp.asarray(spo_b), jnp.asarray(pats), jnp.asarray(lanes),
+                                          jnp.asarray(active))
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+    assert (got.numpy()[~active] == 0).all() and (got.numpy()[spo_b[..., 0] == PAD] == 0).all()
 
 # ---------------------------------------------------------------------------
 # dispatch, counters and the build, without a card
