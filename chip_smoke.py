@@ -60,6 +60,19 @@ Phases, each fatal on failure:
    ``{"kernels": [...]}``. Then one
    more changeset per interest, and one more broker fire, under
    ``torch.profiler``: the device's busy share and where its time goes.
+8. durable: the broker phase's 48 subscribers over the same dump, default
+   ``Broker``, with a ``ChangesetJournal`` (fsync on every append) and a
+   ``DeliveryChannel`` on a fake clock whose transport fails one delivery
+   (it backs off and catches up at the next ingest); a snapshot and a
+   journal compaction after the second changeset; the closing flush. Then
+   crashes at three record boundaries (before the snapshot, after it, and
+   at the last record), each recovered by ``Broker.recover`` on the card
+   and held bit for bit against the state captured at that boundary; the
+   kernel launches of the three recoveries (each of K2/K3, K4, K5, K6 and
+   K7 above 0); the last recovery and the uninterrupted broker take one
+   more changeset and must stay equal. Journal bytes and append time per
+   ingest record, the snapshot's seconds and bytes, each recovery's
+   seconds and the phase's peak device memory, stamped with the card.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
@@ -70,6 +83,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1154,9 +1168,10 @@ def broker_specs(football_caps, location_caps, category_caps, football_init, loc
     return specs
 
 
-def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None, options=None):
+def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None, options=None, between=None):
     """Subscribe ``specs`` and stream ``changesets`` through one ``Broker``
-    (constructor ``options``; none: the default configuration), then flush.
+    (constructor ``options``; none: the default configuration), then flush;
+    ``between(i, broker)``, if given, runs after changeset ``i``.
     The every(2) subscribers subscribe after the first changeset, so that
     they and the max-staleness ones both have changesets pending at the
     flush, which then fires two frontiers in one pass.
@@ -1203,6 +1218,8 @@ def drive_broker(tcore, dictionary, specs, changesets, device, on_fire, mem=None
         if i == 1:
             step("subscribe every2", lambda: subscribe_all(True))
         on_fire(i, collect(step(f"changeset {i}", lambda: broker.process_changeset(d_np, a_np))))
+        if between is not None:
+            between(i, broker)
     on_fire(len(changesets), collect(step("flush", broker.flush)))
     return broker, subs
 
@@ -1507,6 +1524,180 @@ def phase_broker(tcore, device, seed):
         f"({time.perf_counter() - t0:.1f} s)")
     del fires
     return broker, stream, rec, launches
+
+
+DURABLE_KERNELS = ("merge_probe", "triple_match_words", "triple_match_lanes", "triple_match_words_segmented",
+                   "lane_refine")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_durable(tcore, device, seed, card):
+    """The broker phase's 48 subscribers through a journaled default Broker
+    with a delivery channel, crashed and recovered at three boundaries on
+    the card (module docstring, phase 8)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.testing import (CapturingJournal, FakeClock, ScriptedTransport, assert_state_equal,
+                                     broker_state, crash_at_record)
+
+    class TimedAppends(tcore.ChangesetJournal):
+        """Times each frame's write and fsync by kind, with its bytes on disk."""
+
+        def append(self, kind, meta=None, arrays=None, seq=None):
+            size0 = dir_bytes(self.dir)
+            t0 = time.perf_counter()
+            out = super().append(kind, meta=meta, arrays=arrays, seq=seq)
+            dt = time.perf_counter() - t0
+            n, secs, nbytes = self.times.get(kind, (0, 0.0, 0))
+            self.times[kind] = (n + 1, secs + dt, nbytes + dir_bytes(self.dir) - size0)
+            return out
+
+    class Journal(CapturingJournal, TimedAppends):
+        """Captures the broker's state before the chosen ingest records (by
+        ordinal); the capture is not in the timed append."""
+
+        def __init__(self, *args, capture_before=(), **kw):
+            self.capture_before = set(capture_before)
+            self.captures, self.times, self.n_ingests, self.broker = {}, {}, 0, None
+            super().__init__(*args, on_append=self._capture, **kw)
+
+        def _capture(self, seq, kind):
+            if kind == "ingest":
+                if self.n_ingests in self.capture_before:
+                    self.captures[self.n_ingests] = (seq, broker_state(self.broker))
+                self.n_ingests += 1
+
+    def state_check(want, got, what):
+        try:
+            assert_state_equal(want, got)
+        except AssertionError as e:
+            raise SmokeFailure(f"{what}: {str(e)[:400]}") from None
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = make_dictionary_class()()
+    stream = IdSpaceStream(d, FULL, seed, BROKER_CHANGESETS + 1)
+    changesets = [stream.changeset() for _ in range(BROKER_CHANGESETS + 1)]
+    carry_on = changesets.pop()
+    specs = broker_specs(*broker_capacities(tcore), stream.football_init, stream.location_init,
+                         category_targets(stream))
+    del stream
+    log(f"durable: data in {time.perf_counter() - t0:.1f} s, the broker phase's dump and {len(specs)} subscribers")
+
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="durable-", dir=REPO / "build"))
+    try:
+        clk = FakeClock()
+        transport = ScriptedTransport(scripts={0: ["fail"]}, clock=clk)  # jid 0: football/eager
+        channel = tcore.DeliveryChannel(transport, max_attempts=1, base_backoff_s=1.0, jitter=0.0, clock=clk,
+                                        sleep=clk.sleep)
+        # the state before the second and the fourth ingest: crashes before
+        # the snapshot and after it
+        journal = Journal(tmp / "wal", fsync=True, capture_before=(1, 3))
+        store = CheckpointStore(tmp / "ckpt")
+        snap = {}
+
+        def between(i, broker):
+            journal.broker = broker
+            if i == 1:
+                # the journal as a crash before the snapshot finds it
+                journal.sync()
+                shutil.copytree(tmp / "wal", tmp / "wal-before-snapshot")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                snap["seq"] = broker.snapshot(store)
+                snap["s"] = time.perf_counter() - t1
+                snap["bytes"] = dir_bytes(tmp / "ckpt")
+                snap["removed"] = broker.compact_journal()
+            clk.advance(2.0)  # the failed delivery's backoff elapses
+
+        t0 = time.perf_counter()
+        broker, subs = drive_broker(tcore, d, specs, changesets, device, lambda i, f: None,
+                                    options=dict(journal=journal, channel=channel),
+                                    between=between)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        journal.broker = broker
+        final = broker_state(broker)
+        journal.sync()
+        n = journal.last_seq
+        failed = subs["football/eager"]
+        check(len(subs) == 48 and failed.jid == 0, "48 subscribers, football/eager first")
+        check(channel.stats.failures == 1 and channel.failures(failed) == 0 and failed.since > broker._last_cid
+              and transport.log.count((0, "fail")) == 1 and transport.log.count((0, "ok")) >= 2,
+              f"one failed delivery that backed off and caught up: {channel.stats}, {transport.log[:6]}")
+        check(snap["removed"] > 0, "the compaction dropped segments")
+        check(sorted(journal.captures) == [1, 3] and journal.captures[1][0] <= snap["seq"] < journal.captures[3][0],
+              f"captures before and after the snapshot at seq {snap['seq']}: {sorted(journal.captures)}")
+        ingests = journal.times["ingest"]
+        log(f"durable [{card}]: journaled run {wall:.2f} s, {n} records (fsync on each); journal "
+            f"{dir_bytes(tmp / 'wal-before-snapshot') / 2**20:.1f} MiB before the compaction, "
+            f"{dir_bytes(tmp / 'wal') / 2**20:.1f} MiB after the flush ({snap['removed']} segments dropped); "
+            f"ingest records: {ingests[0]}, {ingests[2] / ingests[0] / 2**20:.2f} MiB and "
+            f"{ingests[1] / ingests[0] * 1e3:.1f} ms an append; by kind (records, s, MiB): "
+            + ", ".join(f"{k} ({c}, {t:.3f}, {b / 2**20:.1f})" for k, (c, t, b) in sorted(journal.times.items())))
+        log(f"durable [{card}]: snapshot at seq {snap['seq']} in {snap['s']:.2f} s, "
+            f"{snap['bytes'] / 2**20:.1f} MiB; delivery {channel.stats}")
+
+        first = int(sorted((tmp / "wal").glob("wal_*.seg"))[0].name.split("_")[1].split(".")[0])
+        points = [("before the snapshot", tmp / "wal-before-snapshot", 1, journal.captures[1][0] - 1),
+                  ("after the snapshot", tmp / "wal", first, journal.captures[3][0] - 1),
+                  ("at the last record", tmp / "wal", first, n)]
+        wants = {n: final, **{seq - 1: {**st, "seq": seq - 1} for seq, st in journal.captures.values()}}
+        totals = dict.fromkeys(DURABLE_KERNELS, 0)
+        recovered = None
+        for label, src, first_seq, k in points:
+            del recovered
+            gc.collect()
+            torch.cuda.empty_cache()
+            dst = tmp / f"crash{k}"
+            check(crash_at_record(src, dst, k - first_seq + 1) == k - first_seq + 1, f"crash at {k}")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            recovered = tcore.Broker.recover(tcore.ChangesetJournal(dst, fsync=True), store, dictionary=d,
+                                             device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            for name in DURABLE_KERNELS:
+                totals[name] += launches[name]
+            state_check(wants[k], broker_state(recovered), f"recovery {label} (seq {k})")
+            log(f"durable [{card}]: recovery {label} (crash at seq {k} of {n}; snapshot "
+                f"{'used' if snap['seq'] <= k else 'not yet taken'}) in {secs:.2f} s, bit-identical to the "
+                f"capture; launches {launches}")
+        log(f"durable: the three recoveries' launches {totals}")
+        for name in DURABLE_KERNELS:
+            check(totals[name] > 0, f"{name} never launched in the recoveries: {totals}")
+
+        # the last recovery and the uninterrupted broker go on alike
+        got = recovered.process_changeset(*carry_on)
+        want = broker.process_changeset(*carry_on)
+        check(len(got) == len(want) == 48 and [s.jid for s in recovered.subs] == [s.jid for s in broker.subs],
+              "the recovered broker holds the same subscribers in the same order")
+        for g, w, s in zip(got, want, broker.subs):
+            check((g is None) == (w is None), f"subscriber {s.jid}: fired in one broker only")
+            if g is not None:
+                for f in OUT_FIELDS:
+                    a, b = getattr(g, f), getattr(w, f)
+                    check(int(a.n) == int(b.n) and torch.equal(a.spo, b.spo), f"subscriber {s.jid}.{f} differs")
+        state_check(broker_state(broker), broker_state(recovered), "the carried-on recovery")
+        torch.cuda.synchronize()
+        log(f"durable [{card}]: the recovered broker equals the uninterrupted one after one more changeset "
+            f"({sum(g is not None for g in got)} fired); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB (earlier phases held {held / 2**30:.2f} GiB at its start; the uninterrupted and one recovered "
+            "broker live at once)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def four_ways(bgp, ogp):
@@ -2014,7 +2205,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
-    phase_build()
+    card = phase_build()
     phase_kernels(device)
     phase_small(tcore, device, args.seed)
     subs, stream, changesets, launches = phase_full(tcore, device, args.seed, args.changesets)
@@ -2029,6 +2220,10 @@ def main(argv=None) -> int:
         row["launch_floor_ms"] = floor_ms
     del scratch, rec
     phase_profile(subs, stream, broker, broker_stream)
+    del subs, stream, changesets, broker, broker_stream
+    gc.collect()  # a broker's step closures refer back to it
+    torch.cuda.empty_cache()
+    phase_durable(tcore, device, args.seed, card)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not mods, f"the port loaded JAX or the JAX package: {mods}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

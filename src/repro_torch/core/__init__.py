@@ -1,6 +1,6 @@
 """iRap core on PyTorch: the single-interest pipeline (Defs 6, 11-18) and the
 multi-subscriber broker (deferred flush with delta frontier chains, the
-subsumption lattice).
+subsumption lattice, the write-ahead journal and the delivery channel).
 
 Public API:
   Dictionary, TripleStore + set algebra      (repro_torch.core.{dictionary,triples})
@@ -12,6 +12,9 @@ Public API:
   compose_changesets / ChangesetBatch
   FrontierChain / build_frontier_chain
   Broker / PushPolicy / make_broker_step     (repro_torch.core.broker)
+  make_cohort_step
+  ChangesetJournal / JournalRecord           (repro_torch.core.journal)
+  DeliveryChannel / DeliveryStats            (repro_torch.core.delivery)
   load_dictionary / carry_subscription /     (repro_torch.core.state)
   carry_broker
 """
@@ -21,7 +24,9 @@ from .broker import (
     BrokerSubscription,
     PushPolicy,
     make_broker_step,
+    make_cohort_step,
 )
+from .delivery import DeliveryChannel, DeliveryStats
 from .dictionary import Dictionary, parse_triples
 from .evaluation import (
     SideResult,
@@ -31,6 +36,7 @@ from .evaluation import (
     probe,
     probe_dyn,
 )
+from .journal import ChangesetJournal, JournalRecord
 from .interest import (
     CompiledInterest,
     IncrementalPatternBank,

@@ -74,15 +74,38 @@ The broker evaluates all of them per changeset through shared passes:
    and past ``max_fire_retries`` those subscribers go through the
    per-interest step.
 
+5. **Durability and delivery** (both opt-in; without a journal and a
+   channel the broker behaves as without this layer). A
+   :class:`~repro_torch.core.journal.ChangesetJournal`
+   (``Broker(journal=...)``) logs every state-changing event ahead of its
+   effect: ``subscribe`` and ``unsubscribe`` records carry the call's
+   arguments, an ``ingest`` record the raw changeset (appended before any
+   batch sees it), and a ``fire`` record the acked subscribers' new
+   frontiers (appended after delivery, before the commit), so the journal's
+   durable prefix always ends at a consistent boundary. :meth:`Broker.snapshot`
+   saves every subscriber's τ/ρ and frontier into a
+   :class:`~repro_torch.checkpoint.CheckpointStore`,
+   :meth:`Broker.compact_journal` drops the segments that replay no longer
+   needs, and :meth:`Broker.recover` rebuilds the broker from the newest
+   usable snapshot plus the journal's tail, replaying each recorded fire
+   through the normal fire path (the kernels, on the card): the same τ/ρ,
+   frontiers, pending batches and sequence clock. A
+   :class:`~repro_torch.core.delivery.DeliveryChannel` (``channel=``) hands
+   each fired subscriber's outputs to its transport before anything
+   commits: a failed delivery leaves the subscriber where it was (frontier
+   pinned, batch composing), with retry, backoff, quarantine and ingest
+   backpressure on the channel's injected clock.
+
 Every output equals what the per-interest engine gives for the same composed
 changeset, and every store and statistic equals the reference ``Broker``'s
-under the same ``subsume_interests`` and ``delta_frontiers``. The
-reference's mesh placement and sharding, journal and delivery channel are
-not here.
+under the same ``subsume_interests`` and ``delta_frontiers``; a journal and
+a snapshot written by either package recover in the other. The reference's
+mesh placement and sharding are not here.
 
 One unified sequence clock (``_seq``) orders the broker's events: a
 subscribe, an unsubscribe, an ingested changeset and a committed fire each
-consume one tick, which names frontiers (``since``) and ``BrokerStats.seq``.
+consume one tick, with or without a journal, which names frontiers
+(``since``), journal records and ``BrokerStats.seq``.
 
 Paper name -> code name (Definitions 13-18): ``d(i, D) = <r, r_i, r'>`` and
 ``α(i, A ∪ ρ) = <a, a_i>`` are ``EvalOutputs`` fields; ``Δ(τ)`` and ``Δ(ρ)``
@@ -101,6 +124,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from .delivery import DeliveryChannel
 from .dictionary import Dictionary
 from .evaluation import build_index, make_side_evaluator
 from .interest import (
@@ -113,6 +137,7 @@ from .interest import (
     compile_interest,
     next_pow2,
 )
+from .journal import ChangesetJournal, JournalRecord
 from .propagation import (
     ChangesetBatch,
     EvalOutputs,
@@ -141,6 +166,43 @@ def _plan_shape_key(plan: CompiledInterest):
         plan.n_children,
         const_mask,
     )
+
+
+# ---------------------------------------------------------------------------
+# durability: subscription arguments in journal records and snapshots
+# ---------------------------------------------------------------------------
+
+def _expr_to_json(expr: InterestExpr) -> dict:
+    return {
+        "source": expr.source,
+        "target": expr.target,
+        "bgp": [list(p.slots()) for p in expr.bgp],
+        "ogp": [list(p.slots()) for p in expr.ogp],
+    }
+
+
+def _expr_from_json(d: dict) -> InterestExpr:
+    return InterestExpr.parse(
+        d["source"], d["target"],
+        bgp=[tuple(p) for p in d["bgp"]],
+        ogp=[tuple(p) for p in d.get("ogp", [])],
+    )
+
+
+def _caps_to_json(caps: StepCapacities) -> dict:
+    return dataclasses.asdict(caps)
+
+
+def _caps_from_json(d: dict) -> StepCapacities:
+    return StepCapacities(**d)
+
+
+def _policy_to_json(policy: "PushPolicy | None") -> dict | None:
+    return None if policy is None else dataclasses.asdict(policy)
+
+
+def _policy_from_json(d: dict | None) -> "PushPolicy | None":
+    return None if d is None else PushPolicy(**d)
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +562,12 @@ class BrokerSubscription:
         # lane-group signature (canonical key, caps, policy): the broker's
         # index of exact canonical duplicates; None with the lattice off
         self.canon_sig: Optional[tuple] = None
+        # durable identity: assigned by the broker, journaled, the same after
+        # recovery (unlike `serial`, which is process-local)
+        self.jid: int = -1
+        # the subscriber's own delivery callback (overrides the channel's);
+        # not journaled: re-attach it after recover()
+        self.transport: Optional[Callable] = None
 
     def recompile(self, caps: StepCapacities | None = None) -> None:
         """Refresh plan and capacities after dictionary or capacity growth."""
@@ -631,6 +699,9 @@ class Broker:
     uploads it again, one pass per frontier. ``decay_patience`` is the
     number of under-filled drain checks before a pending batch shrinks, and
     ``max_fire_retries`` bounds the overflow re-runs of one fire.
+    ``journal`` (a :class:`~repro_torch.core.journal.ChangesetJournal`) and
+    ``channel`` (a :class:`~repro_torch.core.delivery.DeliveryChannel`) turn
+    on the durability layer (module docstring, layer 5).
     """
 
     def __init__(
@@ -642,6 +713,8 @@ class Broker:
         delta_frontiers: bool = True,
         subsume_interests: bool = True,
         decay_patience: int = 2,
+        journal: ChangesetJournal | None = None,
+        channel: DeliveryChannel | None = None,
         max_fire_retries: int = 8,
         device=None,
     ):
@@ -694,9 +767,16 @@ class Broker:
         self._bank_version = -1
         self._batches: Dict[int, ChangesetBatch] = {}
         # the unified sequence clock: subscribe, unsubscribe, ingest and a
-        # committed fire each consume one tick
-        self._seq = 0
+        # committed fire each consume one tick, with or without a journal,
+        # so journal-on and journal-off brokers assign the same ids
+        self.journal = journal
+        self.channel = channel
+        self._seq = journal.last_seq if journal is not None else 0
         self._last_cid = 0  # seq of the last ingested changeset
+        self._jid_next = 0  # durable subscriber ids (journaled)
+        self._last_snapshot_seq = 0
+        self._snapshot_keep_from = 1  # compaction floor (advanced by snapshot)
+        self._replaying = False  # recovery replay: no journal, no delivery
         self.degraded_fires = 0  # cumulative per-interest fallback fires
         self._degraded_acc = 0
         self._rejit_acc = 0.0
@@ -716,6 +796,8 @@ class Broker:
         initial_target: np.ndarray | None = None,
         policy: PushPolicy | None = None,
         share_target: bool = False,
+        transport: Optional[Callable] = None,
+        _jid: int | None = None,
     ) -> BrokerSubscription:
         """Register an interest; only its own cohort will be rebuilt.
 
@@ -728,12 +810,36 @@ class Broker:
         ``share_target=True`` adopts an existing identical subscription's
         current τ/ρ state and frontier (the many-readers-of-one-replica
         case); without a compatible one the subscription is independent.
+
+        ``transport`` is the subscriber's own delivery callback (it overrides
+        the channel's). With a journal, the call's arguments are journaled
+        before any state changes, so that replay lands on the same state.
         """
+        jid = self._jid_next if _jid is None else _jid
         self._seq += 1
+        if self.journal is not None and not self._replaying:
+            arrays = {}
+            if initial_target is not None and np.asarray(initial_target).size:
+                arrays["initial_target"] = np.asarray(initial_target, np.int32)
+            self.journal.append(
+                "subscribe",
+                meta={
+                    "jid": jid,
+                    "expr": _expr_to_json(expr),
+                    "caps": _caps_to_json(caps),
+                    "policy": _policy_to_json(policy),
+                    "share_target": bool(share_target),
+                },
+                arrays=arrays,
+                seq=self._seq,
+            )
+        self._jid_next = max(self._jid_next, jid + 1)
         canon_key = None
         if self.subsume_interests:
             expr, canon_key = canonicalize_expr(expr)
         sub = BrokerSubscription(expr, self.dictionary, caps, self.device, policy=policy)
+        sub.jid = jid
+        sub.transport = transport
         sub.since = self._seq + 1
         root = self._find_share_root(sub) if share_target else None
         if root is not None:
@@ -793,6 +899,10 @@ class Broker:
     def unsubscribe(self, sub: BrokerSubscription) -> None:
         """Remove one subscription; unrelated cohorts keep their steps."""
         self._seq += 1
+        if self.journal is not None and not self._replaying:
+            self.journal.append("unsubscribe", meta={"jid": sub.jid}, seq=self._seq)
+        if self.channel is not None:
+            self.channel.forget(sub)
         self.subs.remove(sub)
         self.bank.remove_plan(sub.lanes)
         sub.lanes = ()
@@ -884,11 +994,18 @@ class Broker:
         Returns one entry per subscriber, in subscription order: the
         :class:`EvalOutputs` of its (possibly batched) evaluation, or None
         when its policy deferred it. A fired frontier whose composed batch
-        is empty on both sides gets empty outputs without any pass.
+        is empty on both sides gets empty outputs without any pass. With a
+        channel, due retries are pumped first, and a subscriber that is
+        quarantined or backing off does not fire.
         """
         removed, added = _as_rows(removed), _as_rows(added)
+        if self.channel is not None and not self._replaying:
+            self._service_channel()
         self._seq += 1
         cid = self._seq
+        if self.journal is not None and not self._replaying:
+            # write-ahead: the changeset is durable before any batch sees it
+            self.journal.append("ingest", arrays={"removed": removed, "added": added}, seq=cid)
         if not self.subs:
             self._last_cid = cid
             return []
@@ -900,6 +1017,8 @@ class Broker:
         for k, s in enumerate(self.subs):
             batch = self._batches.get(s.since)
             if batch is not None and s.policy.fires(batch.n_changesets, now - s.last_push_t):
+                if self.channel is not None and not self.channel.eligible(s):
+                    continue  # quarantined or backing off: the frontier pins
                 fired.append(k)
         results, n_passes = self._fire(fired)
         self._sweep_batches(drained=bool(fired))
@@ -928,6 +1047,23 @@ class Broker:
                 s.since = cid
         self._last_cid = cid
 
+    def _service_channel(self) -> None:
+        """Pump due delivery retries; block (on the channel's clock) while
+        the retry queue is full. Each pumped retry either acks or moves its
+        subscriber toward quarantine, so the loop ends."""
+        ch = self.channel
+        due = [s for s in self.subs if ch.retry_due(s)]
+        if due:
+            self.flush(due)
+        if ch.max_in_flight is None:
+            return
+        while ch.in_flight() >= ch.max_in_flight:
+            ch.wait_for_retry()
+            due = [s for s in self.subs if ch.retry_due(s)]
+            if not due:
+                break
+            self.flush(due)
+
     def flush(self, subs: Sequence[BrokerSubscription] | None = None) -> List[Optional[EvalOutputs]]:
         """Drain pending batches now, regardless of policy.
 
@@ -944,6 +1080,8 @@ class Broker:
         t0 = time.perf_counter()
         self._reset_call_accounting()
         fired = [k for k in targets if self.subs[k].since in self._batches]
+        if self.channel is not None and not self._replaying:
+            fired = [k for k in fired if self.channel.eligible(self.subs[k])]
         results, n_passes = self._fire(fired)
         self._sweep_batches(drained=bool(fired))
         if fired:
@@ -991,9 +1129,26 @@ class Broker:
                 outs.update(outs_f)
                 staged.update(staged_f)
                 n_passes += passes
-        # the committed fire consumes one tick
-        self._seq += 1
-        self._commit_staged(staged)
+        # the delivery gate: outputs go to the channel before any state
+        # commits, so a failed delivery needs no rollback: the subscriber's
+        # τ/ρ stay, its frontier pins and its batch keeps composing. Without a
+        # channel, and in replay, every fired subscriber acks.
+        deliver = self.channel is not None and not self._replaying
+        acked: List[int] = []
+        for since in ordered:
+            for k in groups[since]:
+                if not deliver or self.channel.deliver(self.subs[k], outs[k]):
+                    acked.append(k)
+        if acked:
+            # the commit point consumes one tick; the journal records exactly
+            # the acked frontier advances (a crash before this append fires
+            # again, one after it replays without delivering)
+            self._seq += 1
+            if self.journal is not None and not self._replaying:
+                fires = [[self.subs[k].jid, self._batches[self.subs[k].since].last_id + 1] for k in acked]
+                self.journal.append("fire", meta={"fires": fires}, seq=self._seq)
+        acked_set = set(acked)
+        self._commit_staged({k: staged[k] for k in acked if k in staged})
         now = time.perf_counter()
         tag_refs: Dict[int, int] = {}
         for s in self.subs:
@@ -1001,6 +1156,8 @@ class Broker:
         for since in ordered:
             batch = self._batches[since]
             for k in groups[since]:
+                if k not in acked_set:
+                    continue
                 results[k] = outs[k]
                 s = self.subs[k]
                 s.since = batch.last_id + 1
@@ -1371,6 +1528,182 @@ class Broker:
             s.tau, s.rho = tau1, rho1
         if staged:
             _synchronize(self.device)
+
+    # -- durability: snapshot, compaction, recovery --------------------------
+
+    def snapshot(self, store) -> int:
+        """Save the whole broker state into a
+        :class:`~repro_torch.checkpoint.CheckpointStore` at the current
+        sequence number; returns it.
+
+        Replay after a restore then needs only the journal past this seq,
+        plus the earlier ingest records still pending on some frontier,
+        which is what :meth:`compact_journal` keeps. τ/ρ are saved as their
+        valid rows, lex-sorted, so ``from_array`` restores them bit for bit.
+        """
+        state = {"subs": {str(s.jid): {"tau": to_numpy(s.tau), "rho": to_numpy(s.rho)} for s in self.subs}}
+        extra = {
+            "seq": self._seq,
+            "jid_next": self._jid_next,
+            "last_cid": self._last_cid,
+            "subs": [
+                {
+                    "jid": s.jid,
+                    "expr": _expr_to_json(s.expr),
+                    "caps": _caps_to_json(s.caps),
+                    "policy": _policy_to_json(s.policy),
+                    "since": s.since,
+                }
+                for s in self.subs
+            ],
+        }
+        store.save(self._seq, state, extra)
+        self._last_snapshot_seq = self._seq
+        self._snapshot_keep_from = min([s.since for s in self.subs] + [self._seq + 1])
+        return self._seq
+
+    def compact_journal(self) -> int:
+        """Drop the journal segments replay can no longer need; returns how
+        many. Without a snapshot replay needs everything from seq 1, so
+        nothing is dropped."""
+        if self.journal is None:
+            return 0
+        return self.journal.compact(self._snapshot_keep_from)
+
+    @classmethod
+    def recover(
+        cls,
+        journal: ChangesetJournal,
+        store=None,
+        dictionary: Dictionary | None = None,
+        **broker_kwargs,
+    ) -> "Broker":
+        """Rebuild a broker from its journal and, optionally, its snapshots.
+
+        Takes the newest snapshot whose seq is at most the journal's durable
+        ``last_seq`` (a newer one holds state that was never journaled),
+        restores every subscriber's τ/ρ and frontier from it, then replays
+        the journal: ingest records before the snapshot rebuild the pending
+        batches (only changesets at or past a restored frontier land in
+        one), and the records after it re-run their operations with the
+        journal and delivery off. A fire re-runs, through the broker's
+        normal fire path, for exactly the subscribers it recorded, so a
+        delivery that failed before the crash stays uncommitted. The result
+        has the crashed broker's τ/ρ rows, frontiers, pending batches and
+        sequence clock.
+
+        ``dictionary`` must be the one the crashed broker encoded with (it
+        is not journaled), and ``broker_kwargs`` its constructor options
+        (``device`` among them). Transports and the channel's retry state
+        are not journaled; a restored subscriber joins no lane group (a
+        missed collapse, the values are the same).
+        """
+        broker = cls(dictionary=dictionary, journal=journal, **broker_kwargs)
+        broker._seq = 0
+        snap_step = 0
+        extra: Dict = {}
+        if store is not None:
+            usable = [s for s in store.steps() if s <= journal.last_seq]
+            if usable:
+                snap_step = usable[-1]
+                arrays, extra = store.load_raw(snap_step)
+                broker._replaying = True
+                try:
+                    for meta in extra["subs"]:
+                        broker._restore_sub(meta, arrays)
+                finally:
+                    broker._replaying = False
+                broker._seq = int(extra["seq"])
+                broker._jid_next = int(extra["jid_next"])
+                broker._last_snapshot_seq = snap_step
+        min_since = min([s.since for s in broker.subs] + [snap_step + 1])
+        records = list(journal.records())
+        if records and records[0].seq > min(min_since, snap_step + 1):
+            raise RuntimeError(
+                f"journal starts at seq {records[0].seq} but replay needs seq "
+                f"{min(min_since, snap_step + 1)}: a needed segment was compacted away or lost"
+            )
+        broker._replaying = True
+        try:
+            for rec in records:
+                if rec.seq <= snap_step:
+                    # before the snapshot only the ingests still pending on a
+                    # restored frontier matter; the rest is in the snapshot
+                    if rec.kind == "ingest" and rec.seq >= min_since:
+                        broker._apply_ingest(rec.arrays["removed"], rec.arrays["added"], rec.seq)
+                    continue
+                broker._seq = rec.seq - 1
+                if rec.kind == "ingest":
+                    broker._seq = rec.seq
+                    broker._apply_ingest(rec.arrays["removed"], rec.arrays["added"], rec.seq)
+                elif rec.kind == "subscribe":
+                    broker.subscribe(
+                        _expr_from_json(rec.meta["expr"]),
+                        caps=_caps_from_json(rec.meta["caps"]),
+                        initial_target=rec.arrays.get("initial_target"),
+                        policy=_policy_from_json(rec.meta["policy"]),
+                        share_target=bool(rec.meta["share_target"]),
+                        _jid=int(rec.meta["jid"]),
+                    )
+                elif rec.kind == "unsubscribe":
+                    broker.unsubscribe(broker._sub_by_jid(int(rec.meta["jid"])))
+                elif rec.kind == "fire":
+                    broker._replay_fire(rec)
+                else:
+                    raise RuntimeError(f"unknown journal record kind {rec.kind!r}")
+        finally:
+            broker._replaying = False
+        if extra:
+            broker._last_cid = max(broker._last_cid, int(extra["last_cid"]))
+        broker._seq = max(broker._seq, journal.last_seq)
+        broker._sweep_batches(drained=False)
+        return broker
+
+    def _restore_sub(self, meta: Dict, arrays: Dict) -> None:
+        """One snapshot subscriber back to life (not journaled)."""
+        sub = BrokerSubscription(
+            _expr_from_json(meta["expr"]),
+            self.dictionary,
+            _caps_from_json(meta["caps"]),
+            self.device,
+            policy=_policy_from_json(meta["policy"]),
+        )
+        sub.jid = int(meta["jid"])
+        sub.since = int(meta["since"])
+        prefix = f"subs/{sub.jid}/"
+        tau_rows = arrays[prefix + "tau"]
+        rho_rows = arrays[prefix + "rho"]
+        if tau_rows.size:
+            sub.tau, _ = from_array(torch.as_tensor(np.asarray(tau_rows, np.int32), device=self.device), sub.caps.tau)
+        if rho_rows.size:
+            sub.rho, _ = from_array(torch.as_tensor(np.asarray(rho_rows, np.int32), device=self.device), sub.caps.rho)
+        sub.lanes = self.bank.add_plan(sub.plan)
+        self.subs.append(sub)
+        self._lanes_raw += sub.plan.n_total
+
+    def _sub_by_jid(self, jid: int) -> BrokerSubscription:
+        for s in self.subs:
+            if s.jid == jid:
+                return s
+        raise RuntimeError(f"journal references unknown subscriber {jid}")
+
+    def _replay_fire(self, rec: JournalRecord) -> None:
+        """Re-run one committed fire for exactly the recorded subscribers
+        (no delivery: the receivers have these outputs) and commit it; the
+        recorded new frontiers are checked."""
+        by_jid = {int(j): int(ns) for j, ns in rec.meta["fires"]}
+        ks = [k for k, s in enumerate(self.subs) if s.jid in by_jid]
+        if len(ks) != len(by_jid):
+            missing = set(by_jid) - {self.subs[k].jid for k in ks}
+            raise RuntimeError(f"fire record {rec.seq} references unknown subscribers {sorted(missing)}")
+        self._fire(ks)
+        for k in ks:
+            s = self.subs[k]
+            if s.since != by_jid[s.jid]:
+                raise RuntimeError(
+                    f"replayed fire {rec.seq} advanced subscriber {s.jid} to {s.since}, "
+                    f"journal recorded {by_jid[s.jid]}"
+                )
 
     # -- accounting ---------------------------------------------------------
 

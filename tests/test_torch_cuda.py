@@ -568,3 +568,69 @@ def test_paper_example_on_the_card_equals_the_cpu(card):
     assert cpu_counts == {"triple_match": 0, "merge_probe": 0, "triple_match_words": 0, "triple_match_lanes": 0,
                           "triple_match_words_segmented": 0, "lane_refine": 0}
     assert gpu_counts["triple_match"] > 0 and gpu_counts["merge_probe"] > 0
+
+
+def test_journaled_broker_recovers_on_the_card_as_on_the_cpu(card, tmp_path):
+    """A journaled broker with a delivery channel (one failed delivery that
+    backs off and catches up), a snapshot and a flush, crashed before the
+    snapshot, after it and at the last record: each recovery on the card
+    equals its capture and the same recovery on the CPU, store for store,
+    and replays through the kernels."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.testing import (CapturingJournal, FakeClock, ScriptedTransport, assert_state_equal,
+                                     broker_state, crash_at_record)
+
+    runs = {}
+    for device in ("cpu", card):
+        tmp = tmp_path / str(device).replace(":", "")
+        d = tcore.Dictionary()
+        tau0 = d.encode_triples([("dbr:M", A, "dbo:Athlete"), ("dbr:C", A, "dbo:Athlete"),
+                                 ("dbr:C", "dbp:goals", "96")])
+        changesets = [
+            (d.encode_triples([("dbr:C", "dbp:goals", "96")]),
+             d.encode_triples([("dbr:C", "dbp:goals", "216"), ("dbr:R", A, "dbo:Athlete"), ("dbr:R", "dbp:goals", "3")])),
+            (d.encode_triples([("dbr:R", "dbp:goals", "3")]), d.encode_triples([("dbr:M", "dbp:goals", "10")])),
+            (d.encode_triples([("dbr:C", "dbp:goals", "216")]), d.encode_triples([("dbr:C", "dbp:goals", "217")])),
+            (np.zeros((0, 3), np.int32), d.encode_triples([("dbr:X", "dbp:goals", "1"), ("dbr:X", A, "dbo:Athlete")])),
+        ]
+        clk = FakeClock()
+        ch = tcore.DeliveryChannel(ScriptedTransport(scripts={2: ["fail"]}, clock=clk), max_attempts=1,
+                                   base_backoff_s=1.0, jitter=0.0, clock=clk, sleep=clk.sleep)
+        captures, holder = {}, []
+        j = CapturingJournal(tmp / "wal", fsync=False,
+                             on_append=lambda seq, kind: captures.__setitem__(seq, broker_state(holder[0])))
+        broker = tcore.Broker(d, device=device, journal=j, channel=ch)
+        holder.append(broker)
+        for bgp, pol in [([("?a", "dbp:goals", "?g")], None), ([("?x", "dbp:goals", "?y")], None),
+                         ([("dbr:C", "dbp:goals", "?g")], tcore.PushPolicy.every(2)),
+                         ([("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?g")], tcore.PushPolicy.max_staleness(1e9))]:
+            broker.subscribe(tcore.InterestExpr.parse("s", "t", bgp),
+                             tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32),
+                             initial_target=tau0, policy=pol)
+        store = CheckpointStore(tmp / "ckpt")
+        for i, c in enumerate(changesets):
+            broker.process_changeset(*c)
+            if i == 1:
+                snap = broker.snapshot(store)
+            clk.advance(2.0)
+        broker.flush()
+        j.close()
+        n = max(captures)
+        final = broker_state(broker)
+        states = []
+        kernels.reset_launch_counts()
+        for k in (snap - 1, snap + 1, n):
+            crash_at_record(tmp / "wal", tmp / f"crash{k}", k)
+            got = broker_state(tcore.Broker.recover(tcore.ChangesetJournal(tmp / f"crash{k}", fsync=False), store,
+                                                    dictionary=d, device=device))
+            assert_state_equal(final if k == n else {**captures[k + 1], "seq": k}, got)
+            states.append(got)
+        runs[str(device)] = (states, kernels.launch_counts(), ch.stats)
+    (cpu_states, cpu_counts, cpu_stats), (gpu_states, gpu_counts, gpu_stats) = runs["cpu"], runs[str(card)]
+    assert cpu_stats == gpu_stats and cpu_stats.failures == 1
+    for a, b in zip(cpu_states, gpu_states):
+        assert_state_equal(a, b)
+    assert all(n == 0 for n in cpu_counts.values())
+    for name in ("triple_match_words", "triple_match_lanes", "merge_probe", "triple_match_words_segmented",
+                 "lane_refine"):
+        assert gpu_counts[name] > 0, name

@@ -16,6 +16,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b(?!_tor
 def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.core.broker, repro_torch.kernels, repro_torch.data\n"
+        "import repro_torch.core.journal, repro_torch.core.delivery, repro_torch.checkpoint, repro_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )
