@@ -28,7 +28,10 @@ Phases, each fatal on failure:
    N % 4 of 1-3 (each member its own alignment), N < 4, bases offset by a
    row and sliced along R, nt of 0 and 32, lanes outside the bank,
    lex-sorted PAD-tailed and all-PAD members, every member inactive, more
-   members than the grid holds blocks, several staging chunks).
+   members than the grid holds blocks, several staging chunks); K4, K5 and
+   K6 at the sharded cohort step's block-sliced views (4 shards of 2^17
+   rows, 3 shards of 2^17 + 1 whose last block overlaps the one before),
+   each block and the stitched blocks against the plain versions.
 3. small: the paper's running example, and a small id-space stream with the
    Football and Location interests, through ``IrapEngine`` on the card; every
    named set equals the pure-Python oracle's; then both through the default
@@ -39,7 +42,10 @@ Phases, each fatal on failure:
    and changesets of ~10^5 rows a side. Run once through the kernels, with
    the launch counters set to 0 just before and read just after, and once
    with the plain versions on the same card; every output store (τ', ρ', r,
-   r_i, r', a, a_i) must be bit-identical.
+   r_i, r', a, a_i) must be bit-identical. Then ``make_distributed_evaluator``
+   over 4 logical shards of the card, on the Football interest's
+   hash-partitioned τ0 and both sides of a changeset, must equal the
+   single-device evaluator (its K1 and K2 launches counted).
 5. broker: 48 subscribers (Football, Location and 40 category interests,
    four policies; the categories' patterns ride virtual lanes under
    Location's) through the default ``Broker`` over the same kind of dump: 4
@@ -73,6 +79,17 @@ Phases, each fatal on failure:
    more changeset and must stay equal. Journal bytes and append time per
    ingest record, the snapshot's seconds and bytes, each recovery's
    seconds and the phase's peak device memory, stamped with the card.
+9. sharded: the broker phase's 48 subscribers over the same kind of dump,
+   at its capacities but without candidate dedup (the sharded step
+   refuses it), through three
+   default brokers in lockstep: unsharded, sharded over
+   ``DeviceMesh.on_card(4)`` (4 logical shards of the card, one thread a
+   shard) and placed by load over the same mesh; every fire of the sharded
+   and the placed broker must equal the unsharded one bit for bit, with
+   launches of K2, K4, K5 and K6 in the sharded run and of K7 in the
+   placed run (counted per call, summed). Each call's time, the sharded
+   run's probe exchange bytes and the phase's peak device memory, stamped
+   with the card.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
@@ -538,6 +555,7 @@ def phase_kernels(device):
     cases += probe_kernel_cases(device, rng)
     cases += bank_kernel_cases(device, rng)
     cases += chain_kernel_cases(device, rng)
+    cases += block_kernel_cases(device, rng)
     torch.cuda.synchronize()
     log(f"kernels: {cases} kernel-vs-plain cases bit-identical on the card")
 
@@ -794,6 +812,58 @@ def chain_kernel_cases(device, rng) -> int:
 # head and tail, unaligned stores); N below one group of 4 rows; an all-PAD
 # row set. K6 adds (n_seg, seg bits drawn): 1, 2, 3 and 32 segments, bits
 # above n_seg.
+# The sharded cohort step's block-sliced views, (shards, rows): shard i's
+# block of blk = ceil(rows / shards) rows starts at min(i blk, rows - blk);
+# 4 shards divide the rows, 3 do not (the last block overlaps the one before)
+BLOCK_CASES = [(4, 1 << 17), (3, (1 << 17) + 1)]
+
+
+def block_kernel_cases(device, rng) -> int:
+    """K4, K5 and K6 at the sharded step's block-sliced views of a D side
+    (two frontier planes), a cohort's I rows (8 members, two inactive) and a
+    chain's union rows (two segments), over a bank of 96 rows (W = 3): each
+    block against the plain version on the same view, then the blocks
+    stitched at their starts against the plain version over every row."""
+    import torch
+    from repro_torch.core.broker import _blocks, _stitch
+    from repro_torch.kernels import ref, triple_match_lanes, triple_match_words, triple_match_words_segmented
+
+    cases = 0
+    for n_shards, cap in BLOCK_CASES:
+        blk, starts = _blocks(cap, n_shards)
+        spo_np, pats_np = bank_case(rng, 2 * cap, 96, "mixed")
+        d_spo = torch.as_tensor(spo_np, device=device).view(2, cap, 3)
+        pats = torch.as_tensor(pats_np, device=device)
+        seg = torch.as_tensor(rng.integers(0, 4, size=cap).astype(np.int32), device=device)
+        lanes = torch.as_tensor(rng.integers(0, 96, size=(8, 3)).astype(np.int32), device=device)
+        active = torch.as_tensor(np.arange(8) % 4 != 3, device=device)
+        i_spo = d_spo[torch.as_tensor(rng.integers(0, 2, size=8), device=device)]
+        blocks = {"words": [], "lanes": [], "seg": []}
+        for start in starts:
+            sl = slice(start, start + blk)
+            d_loc = d_spo[:, sl].reshape(-1, 3)
+            w = triple_match_words.triple_match_words_cuda(d_loc, pats)
+            check(torch.equal(w, ref.pattern_bitmask_words_ref(d_loc, pats)),
+                  f"triple_match_words != plain at the block at {start} of {cap} rows ({n_shards} shards)")
+            a = triple_match_lanes.triple_match_lanes_cuda(i_spo[:, sl], pats, lanes, active)
+            check(torch.equal(a, ref.pattern_lane_bits_ref(i_spo[:, sl], pats, lanes, active)),
+                  f"triple_match_lanes != plain at the block at {start} of {cap} rows ({n_shards} shards)")
+            g = triple_match_words_segmented.triple_match_words_segmented_cuda(d_spo[0, sl], pats, seg[sl], 2)
+            check(torch.equal(g, ref.pattern_bitmask_words_segmented_ref(d_spo[0, sl], pats, seg[sl], 2)),
+                  f"triple_match_words_segmented != plain at the block at {start} of {cap} rows ({n_shards} shards)")
+            blocks["words"].append(w.view(2, blk, -1))
+            blocks["lanes"].append(a)
+            blocks["seg"].append(g)
+        wants = {"words": ref.pattern_bitmask_words_ref(d_spo.reshape(-1, 3), pats).view(2, cap, -1),
+                 "lanes": ref.pattern_lane_bits_ref(i_spo, pats, lanes, active),
+                 "seg": ref.pattern_bitmask_words_segmented_ref(d_spo[0], pats, seg, 2)}
+        for name, want in wants.items():
+            check(torch.equal(_stitch(torch.stack(blocks[name]), cap, blk, starts, dim=1), want),
+                  f"the stitched {name} blocks != one plain pass over {cap} rows ({n_shards} shards)")
+        cases += 3
+    return cases
+
+
 BANK_CASES = [(4097, 32, 0, "shared", False), (4098, 64, 1, "wild", False), (4099, 160, 2, "pad", False),
               (20_001, 320, 3, "distinct", False), (3, 7, 1, "mixed", False), (4096, 45, 0, "mixed", True),
               (2, 1, 2, "wild", False), (100_003, 9, 0, "pad", False), (1001, 300, 1, "shared", False)]
@@ -1115,7 +1185,69 @@ def phase_full(tcore, device, seed, n_changesets):
     for i, step in enumerate(p_steps):
         log(f"  changeset {i} ms kernel/plain: " + "; ".join(
             f"{n} {kernel_ms[i][n]:.1f}/{st.elapsed_s * 1e3:.1f}" for n, st in step["stats"].items()))
+    del p_subs, p_steps
+    distributed_check(tcore, device, d, inits["football"], changesets[0], caps["football"])
     return subs, stream, changesets, launches
+
+
+# the distributed evaluator check's capacities: changeset rows a shard,
+# output rows, pull rows (no capacity overflows at the full scale)
+DIST_CAPS = (1 << 17, 1 << 18, 1 << 19)
+
+
+def distributed_check(tcore, device, d, tau_rows, changeset, caps):
+    """``make_distributed_evaluator`` over 4 logical shards of the card on
+    the Football interest: both sides of a full-scale changeset against the
+    Football τ0, hash-partitioned, equal to the single-device evaluator
+    over the whole τ0 (the union of the shards' outputs)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.evaluation import build_index, make_side_evaluator
+    from repro_torch.core.triples import PAD
+
+    n = 4
+    plan = tcore.compile_interest(exprs(tcore)["football"], d)
+    m_cap, out_cap, pull_cap = DIST_CAPS
+    kw = dict(id_capacity=d.id_capacity * caps.id_headroom, fanout=caps.fanout, out_capacity=out_cap,
+              pull_capacity=pull_cap)
+    single = make_side_evaluator(plan, **kw)
+    sharded = dist.make_distributed_evaluator(plan, dist.DeviceMesh.on_card(n), **kw)
+    spo_sh, ops_sh, t_ovf = dist.prepare_target_shards(tau_rows, n, caps.tau)
+    check(not t_ovf.any(), "the τ shards hold every row")
+    spo_sh, ops_sh = torch.as_tensor(spo_sh, device=device), torch.as_tensor(ops_sh, device=device)
+    tgt = build_index(tcore.from_numpy(tau_rows, caps.tau, device))
+
+    def rows_of(stores) -> np.ndarray:
+        arr = stores.spo.reshape(-1, 3).cpu().numpy()
+        return np.unique(arr[arr[:, 0] != PAD], axis=0).reshape(-1, 3)
+
+    for side, rows in zip(("removed", "added"), changeset):
+        m_sh, m_ovf = dist.partition_rows(rows, n, key_col=0, cap=m_cap)
+        check(not m_ovf.any(), "the changeset shards hold every row")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = single(tcore.from_numpy(rows, m_cap, device), tgt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kernels.reset_launch_counts()
+        dist.reset_traffic()
+        got = sharded(torch.as_tensor(m_sh, device=device), spo_sh, ops_sh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, traffic = kernels.launch_counts(), dict(dist.traffic)
+        check(launches["triple_match"] > 0 and launches["merge_probe"] > 0,
+              f"the distributed evaluator's kernels never launched: {launches}")
+        check(not bool(want.overflow) and not bool(got.overflow.any()), f"{side}: no capacity overflows")
+        sizes = []
+        for f in ("interesting", "potential", "pulls"):
+            w, g = rows_of(getattr(want, f)), rows_of(getattr(got, f))
+            check(np.array_equal(w, g), f"distributed evaluator {side}.{f} != the single-device evaluator")
+            sizes.append(f"{f} {w.shape[0]:,}")
+        log(f"full: make_distributed_evaluator over {n} shards of the card, Football {side} side ({rows.shape[0]:,} "
+            f"rows) = the single-device evaluator ({', '.join(sizes)}); {(t2 - t1) * 1e3:.1f} ms vs "
+            f"{(t1 - t0) * 1e3:.1f} ms; launches {launches}; collectives {traffic['collectives']}, all_to_all "
+            f"{traffic['all_to_all'] / 2**20:.1f} MiB")
 
 
 # ---------------------------------------------------------------------------
@@ -1700,6 +1832,141 @@ def phase_durable(tcore, device, seed, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SHARDED_KERNELS = ("merge_probe", "triple_match_words", "triple_match_lanes", "triple_match_words_segmented")
+N_SHARDS = 4
+
+
+def phase_sharded(tcore, device, seed, card):
+    """The broker phase's 48 subscribers over a mesh of 4 logical shards of
+    the card, default Broker, in lockstep with an unsharded Broker: sharded
+    (``shard_cohorts=True``) and placed by load; every fire of both equals
+    the unsharded fire bit for bit (module docstring, phase 9). The
+    unsharded and placed brokers take the broker phase's capacities; the
+    sharded one the same without candidate dedup, which it refuses (a
+    shard sees its own pools only). Dedup changes no output, only how large
+    the pools grow; a store whose capacity grew differently (an overflow
+    that only one of the settings met) is compared on its rows."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.triples import PAD
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = make_dictionary_class()()
+    stream = IdSpaceStream(d, FULL, seed, BROKER_CHANGESETS)
+    changesets = [stream.changeset() for _ in range(BROKER_CHANGESETS)]
+    specs = broker_specs(*broker_capacities(tcore), stream.football_init, stream.location_init,
+                         category_targets(stream))
+    del stream
+    log(f"sharded: data in {time.perf_counter() - t0:.1f} s, the broker phase's dump, {len(specs)} subscribers and "
+        "capacities (the sharded broker without candidate dedup)")
+
+    mesh = dist.DeviceMesh.on_card(N_SHARDS)
+    options = {"unsharded": {}, "sharded": dict(mesh=mesh, shard_cohorts=True),
+               "placed": dict(mesh=mesh, placement=dist.CohortPlacement(mode="load_balanced"))}
+    brokers = {name: tcore.Broker(d, device=device, **opts) for name, opts in options.items()}
+    subs = {name: {} for name in brokers}
+    launches = {name: dict.fromkeys(kernels.launch_counts(), 0) for name in brokers}
+    fire_ms = {name: [] for name in brokers}
+    exchange = []
+    n_compared = [0]
+    resized = {name: 0 for name in brokers}
+    peaks = [0]
+
+    def collect(name, outs):
+        names = {id(sub): n for n, sub in subs[name].items()}
+        return {names[id(sub)]: {**{f: getattr(out, f) for f in OUT_FIELDS}, "tau": sub.tau, "rho": sub.rho}
+                for sub, out in zip(brokers[name].subs, outs) if out is not None}
+
+    def step(label, fn):
+        """``fn(broker, subs)`` on each broker in turn, its kernels counted,
+        its time and peak memory taken; the sharded and placed fires are
+        held against the unsharded one as soon as they exist."""
+        want = None
+        for name, broker in brokers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            dist.reset_traffic()
+            t1 = time.perf_counter()
+            outs = fn(broker, subs[name])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            peaks[0] = max(peaks[0], torch.cuda.max_memory_allocated())
+            for k, v in kernels.launch_counts().items():
+                launches[name][k] += v
+            if outs is None:
+                continue
+            fire_ms[name].append((label, ms, torch.cuda.max_memory_allocated()))
+            got = collect(name, outs)
+            del outs
+            if name == "sharded":
+                exchange.append((label, dict(dist.traffic)))
+            if want is None:
+                want = got
+                continue
+            check(sorted(got) == sorted(want), f"{label}: the {name} broker fired others")
+            for sub_name, stores in got.items():
+                for f, st in stores.items():
+                    w = want[sub_name][f]
+                    n = int(w.n)
+                    if st.spo.shape != w.spo.shape:
+                        resized[name] += 1
+                    check(int(st.n) == n and torch.equal(st.spo[:n], w.spo[:n]) and bool((st.spo[n:] == PAD).all()),
+                          f"{label} {sub_name}.{f}: the {name} broker != the unsharded one")
+                    n_compared[0] += 1
+            del got
+
+    def subscribe(every2: bool):
+        def fn(broker, subs_of):
+            for name, (bgp, ogp), caps_of, kind, init in specs:
+                if (kind == "every2") == every2:
+                    expr = tcore.InterestExpr.parse("synthetic://dbpedia-live", f"local://{name}", bgp, ogp)
+                    if broker.shard_cohorts:
+                        caps_of = dataclasses.replace(caps_of, dedup_candidates=0)
+                    subs_of[name] = broker.subscribe(expr, caps_of, initial_target=init, policy=make_policy(tcore, kind))
+        return fn
+
+    t0 = time.perf_counter()
+    step("subscribe", subscribe(False))
+    for i, cs in enumerate(changesets):
+        if i == 1:
+            step("subscribe every2", subscribe(True))
+        step(f"changeset {i}", lambda broker, _, cs=cs: broker.process_changeset(*cs))
+    step("flush", lambda broker, _: broker.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = peaks[0]
+    sh, pl = brokers["sharded"], brokers["placed"]
+    log(f"sharded [{card}]: {len(fire_ms['sharded'])} calls x 3 brokers in {wall:.1f} s; {n_compared[0]} stores of "
+        f"the sharded and placed brokers bit-identical to the unsharded broker's, fire by fire (of another capacity: "
+        f"sharded {resized['sharded']}, placed {resized['placed']})")
+    for name in brokers:
+        log(f"  {name}: ms per call (peak GiB) " + ", ".join(f"{label} {ms:.1f} ({pk / 2**30:.2f})"
+                                                          for label, ms, pk in fire_ms[name])
+            + f"; launches {launches[name]}; cohort passes by device {dict(sorted(brokers[name].device_passes.items()))}")
+    log("  sharded probe exchange (all_to_all MiB, all_gather MiB, or_reduce MiB, collectives) per call: " + ", ".join(
+        f"{label} ({t['all_to_all'] / 2**20:.1f}, {t['all_gather'] / 2**20:.1f}, {t['or_reduce'] / 2**20:.1f}, "
+        f"{t['collectives']:,})" for label, t in exchange))
+    log(f"sharded [{card}]: τ partitions cached {len(sh._tau_parts_cache)}, "
+        f"{sum(p[0].numel() + p[1].numel() for p in sh._tau_parts_cache.values()) * 4 / 2**30:.2f} GiB; peak device "
+        f"memory {peak / 2**30:.2f} GiB (earlier phases held {held / 2**30:.2f} GiB at its start; three brokers "
+        "live at once, the unsharded broker's fires of one call kept)")
+    check(len(subs["sharded"]) == 48 and n_compared[0] > 0, "48 subscribers, fires compared")
+    check(resized["placed"] == 0, "the placed broker's stores have the unsharded broker's capacities")
+    for name in SHARDED_KERNELS:
+        check(launches["sharded"][name] > 0, f"{name} never launched in the sharded run: {launches['sharded']}")
+    check(launches["sharded"]["lane_refine"] == 0 and sh.words_compiles == 0,
+          "the sharded step matches virtual lanes as bank rows, block-split: no shared words pass, no lane refine")
+    check(launches["placed"]["lane_refine"] > 0, f"lane_refine never launched in the placed run: {launches['placed']}")
+    check(sorted(sh.device_passes) == list(range(N_SHARDS)) and len(set(sh.device_passes.values())) == 1,
+          f"every sharded pass spans the mesh: {sh.device_passes}")
+    check(len(pl.device_passes) > 1, f"the placed cohorts spread over the mesh: {pl.device_passes}")
+
+
 def four_ways(bgp, ogp):
     """One interest written four ways: as is, with its variables renamed,
     with its BGP patterns reordered, and both."""
@@ -2224,6 +2491,9 @@ def main(argv=None) -> int:
     gc.collect()  # a broker's step closures refer back to it
     torch.cuda.empty_cache()
     phase_durable(tcore, device, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_sharded(tcore, device, args.seed, card)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not mods, f"the port loaded JAX or the JAX package: {mods}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

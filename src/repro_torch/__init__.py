@@ -9,6 +9,8 @@ write-ahead journal, delivery channel, snapshots and crash recovery
 ``repro_torch.testing``), on hand-written Hopper kernels for the pattern
 bitset, the lexicographic probe, the bank words, the fused lane routing,
 the segmented bank words and the lane refinement (``repro_torch.kernels``).
+A ``DeviceMesh`` of devices of this one process carries the broker's cohort
+placement and sharded cohort step (``repro_torch.core.distributed``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import checkpoint, core, kernels, testing
@@ -18,8 +20,10 @@ from .core import (
     BrokerSubscription,
     ChangesetBatch,
     ChangesetJournal,
+    CohortPlacement,
     DeliveryChannel,
     DeliveryStats,
+    DeviceMesh,
     Dictionary,
     EvalOutputs,
     IncrementalPatternBank,
@@ -32,6 +36,10 @@ from .core import (
     compile_interest,
     make_broker_step,
     make_cohort_step,
+    make_distributed_evaluator,
+    make_sharded_cohort_step,
+    partition_rows,
+    prepare_target_shards,
     to_numpy,
     to_set,
 )
@@ -42,8 +50,10 @@ __all__ = [
     "BrokerSubscription",
     "ChangesetBatch",
     "ChangesetJournal",
+    "CohortPlacement",
     "DeliveryChannel",
     "DeliveryStats",
+    "DeviceMesh",
     "Dictionary",
     "EvalOutputs",
     "IncrementalPatternBank",
@@ -59,6 +69,10 @@ __all__ = [
     "kernels",
     "make_broker_step",
     "make_cohort_step",
+    "make_distributed_evaluator",
+    "make_sharded_cohort_step",
+    "partition_rows",
+    "prepare_target_shards",
     "to_numpy",
     "testing",
     "to_set",

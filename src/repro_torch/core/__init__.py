@@ -1,6 +1,7 @@
 """iRap core on PyTorch: the single-interest pipeline (Defs 6, 11-18) and the
 multi-subscriber broker (deferred flush with delta frontier chains, the
-subsumption lattice, the write-ahead journal and the delivery channel).
+subsumption lattice, the write-ahead journal and the delivery channel,
+cohort placement and sharding over a device mesh).
 
 Public API:
   Dictionary, TripleStore + set algebra      (repro_torch.core.{dictionary,triples})
@@ -12,7 +13,10 @@ Public API:
   compose_changesets / ChangesetBatch
   FrontierChain / build_frontier_chain
   Broker / PushPolicy / make_broker_step     (repro_torch.core.broker)
-  make_cohort_step
+  make_cohort_step / make_sharded_cohort_step
+  DeviceMesh / CohortPlacement               (repro_torch.core.distributed)
+  make_distributed_evaluator
+  partition_rows / prepare_target_shards
   ChangesetJournal / JournalRecord           (repro_torch.core.journal)
   DeliveryChannel / DeliveryStats            (repro_torch.core.delivery)
   load_dictionary / carry_subscription /     (repro_torch.core.state)
@@ -25,9 +29,19 @@ from .broker import (
     PushPolicy,
     make_broker_step,
     make_cohort_step,
+    make_sharded_cohort_step,
 )
 from .delivery import DeliveryChannel, DeliveryStats
 from .dictionary import Dictionary, parse_triples
+from .distributed import (
+    CohortPlacement,
+    DeviceMesh,
+    gather_result_sets,
+    make_distributed_evaluator,
+    partition_rows,
+    prepare_target_shards,
+    run_spmd,
+)
 from .evaluation import (
     SideResult,
     TripleIndex,

@@ -96,11 +96,23 @@ The broker evaluates all of them per changeset through shared passes:
    pinned, batch composing), with retry, backoff, quarantine and ingest
    backpressure on the channel's injected clock.
 
+6. **Devices** (opt-in, ``Broker(mesh=...)`` with a
+   :class:`~repro_torch.core.distributed.DeviceMesh`). By default each
+   cohort is placed on one mesh device by a
+   :class:`~repro_torch.core.distributed.CohortPlacement` (round robin,
+   load-balanced by padded member count, or pinned; sticky), and the
+   frontier pass runs the cohorts grouped by device, each with its inputs
+   and statics on its device. ``shard_cohorts=True`` instead spreads every
+   cohort pass over the whole mesh (:func:`make_sharded_cohort_step`, one
+   thread a shard): τ replicas hash-partition across the shards (cached
+   per subscription, τ version and capacity), the bank passes are
+   block-split and stitched, and probes route to their owner shard.
+
 Every output equals what the per-interest engine gives for the same composed
 changeset, and every store and statistic equals the reference ``Broker``'s
-under the same ``subsume_interests`` and ``delta_frontiers``; a journal and
-a snapshot written by either package recover in the other. The reference's
-mesh placement and sharding are not here.
+under the same ``subsume_interests`` and ``delta_frontiers``, with a mesh or
+without; a journal and a snapshot written by either package recover in the
+other.
 
 One unified sequence clock (``_seq``) orders the broker's events: a
 subscribe, an unsubscribe, an ingested changeset and a committed fire each
@@ -126,7 +138,18 @@ import torch
 from ..kernels import ops as kops
 from .delivery import DeliveryChannel
 from .dictionary import Dictionary
-from .evaluation import build_index, make_side_evaluator
+from .distributed import (
+    CohortPlacement,
+    DeviceMesh,
+    _count_valid,
+    all_gather,
+    axis_index,
+    make_or_reduce,
+    make_routed_probe_batched,
+    run_spmd,
+    shard_target_store,
+)
+from .evaluation import SideResult, TripleIndex, build_index, make_side_evaluator
 from .interest import (
     CompiledInterest,
     IncrementalPatternBank,
@@ -410,6 +433,248 @@ def make_cohort_step(
     return step
 
 
+def _blocks(cap: int, n_shards: int) -> Tuple[int, List[int]]:
+    """Row blocks of a block-split pass: each shard's block length and
+    start. The tail blocks are clamped to end at ``cap`` (the reference's
+    ``dynamic_slice`` at ``my * blk``), so the last overlaps the one before
+    it; overlapping rows carry equal words, so stitching by overwrite is
+    exact."""
+    blk = -(-cap // n_shards)
+    return blk, [min(i * blk, cap - blk) for i in range(n_shards)]
+
+
+def _stitch(gathered: torch.Tensor, cap: int, blk: int, starts: List[int], dim: int) -> torch.Tensor:
+    """Every shard's block (``gathered[i]``) written back at its start along ``dim``."""
+    shape = list(gathered.shape[1:])
+    shape[dim] = cap
+    out = torch.zeros(shape, dtype=gathered.dtype, device=gathered.device)
+    for i, start in enumerate(starts):
+        out.narrow(dim, start, blk).copy_(gathered[i])
+    return out
+
+
+def make_sharded_cohort_step(
+    plan: CompiledInterest,
+    caps: StepCapacities,
+    id_capacity: int,
+    mesh: DeviceMesh,
+    *,
+    matcher: Optional[Callable] = None,
+    delta: bool = False,
+    n_frontiers: int = 1,
+) -> Callable:
+    """:func:`make_cohort_step` with the member evaluations spread over a
+    :class:`~repro_torch.core.distributed.DeviceMesh`, one thread a shard,
+    equal to the single-device step:
+
+    * each member's τ replica is hash-partitioned across the shards (SPO by
+      subject, OPS by object; the broker caches the partitions per
+      subscription and τ version), and candidate probes route to the owner
+      shard (:func:`~repro_torch.core.distributed.make_routed_probe_batched`):
+      the partition key is the probe's bound slot, so the owner holds the
+      whole prefix range and even the ``fanout`` truncation order matches
+      the unpartitioned index;
+    * the changeset rows stay replicated, but each shard owns the rows whose
+      subject hashes to it: the bank passes are block-split across the shards
+      (the K4/K6 words pass and the K5 lanes pass each over one row block),
+      the blocks all-gathered and stitched back at their starts, and then
+      each shard zeroes the bits of the rows it does not own (``row_mask``
+      of :func:`kops.lane_bits_batched`). Zero bits give no candidates, no
+      signatures and no outputs, so the masks split the evaluation, and
+      each shard evaluates only its rows with bits (:func:`_rows_with_bits`):
+      its pools and probe answers hold its share of the rows, not all of
+      them;
+    * signature tables and edge vectors OR-reduce across the shards (the
+      ``table_reduce`` hook), so gating is global while candidates and
+      classification stay on their shard;
+    * each member's per-shard outputs go through one ``from_array`` (sort,
+      dedup, compact), which erases the decomposition: the stores, Δ/Υ and
+      overflow flags equal the single-device step's.
+
+    The deleted-side words are computed in the step over the whole extended
+    bank (virtual lanes as materialized rows, no lane refinement), as the
+    reference's sharded step does. Signature::
+
+        step(d_sets,        # Fp-tuple of TripleStore, D per frontier slot
+             a_sets,        # Fp-tuple of TripleStore, A per frontier slot
+             bank_dev,      # int32[32 W, 3] padded extended bank
+             uniq_taus,     # Nu-tuple of TripleStore, unique replicas
+             uniq_tau_spo,  # Nu-tuple of int32[n_shards, t_cap, 3], by subject
+             uniq_tau_ops,  # Nu-tuple of int32[n_shards, t_cap, 3], (o, p, s) by object
+             rhos,          # Ncp-tuple of TripleStore
+             statics,       # CohortStatics
+        ) -> (tau1s, rho1s, outs)
+
+    ``delta=True`` takes the delta chain's union store and its int32
+    membership bitmap (bit = local frontier slot, ``n_frontiers`` of them)
+    in place of ``d_sets``: ``step(d_union, d_seg, a_sets, ...)``; each
+    shard runs one segmented words pass over its block of union rows.
+
+    Candidate dedup (``caps.dedup_candidates``) is refused, as in the
+    reference: a shard counts pool overflow over its own candidates only, so
+    a global overflow no shard sees would skip the capacity retry.
+    """
+    if caps.dedup_candidates:
+        raise ValueError(
+            "sharded cohort evaluation requires dedup_candidates == 0 "
+            "(per-shard pools cannot detect global dedup overflow)"
+        )
+    axis, n_shards = mesh.axis_name, mesh.size
+    eval_kw = dict(
+        id_capacity=id_capacity,
+        fanout=caps.fanout,
+        pull_capacity=caps.pulls,
+        matcher=matcher,
+        dedup_candidates=caps.dedup_candidates,
+        dynamic_patterns=True,
+        probe_impl=make_routed_probe_batched(axis, n_shards),
+        table_reduce=make_or_reduce(axis),
+    )
+    eval_d = make_side_evaluator(plan, out_capacity=caps.n_removed, **eval_kw)
+    eval_a = make_side_evaluator(plan, out_capacity=caps.n_i, **eval_kw)
+
+    def added_side_bits(my: int, i_spo, bank, lanes, active) -> torch.Tensor:
+        """Block-split fused match + route over the I rows, block-gathered,
+        stitched, then masked to the rows this shard owns."""
+        n_i_cap = i_spo.shape[1]
+        blk, starts = _blocks(n_i_cap, n_shards)
+        a_loc = kops.pattern_lane_bits_batched(
+            i_spo[:, starts[my]: starts[my] + blk], bank, lanes, active, matcher=matcher
+        )
+        a_full = _stitch(all_gather(a_loc, axis), n_i_cap, blk, starts, dim=1)
+        own = (i_spo[:, :, 0] != PAD) & (i_spo[:, :, 0] % n_shards == my)
+        return torch.where(own, a_full, torch.zeros_like(a_full))
+
+    def merge_side(per_shard: List[SideResult], out_cap: int, pull_cap: int, home) -> SideResult:
+        """One member's per-shard results back into canonical form."""
+
+        def merge(field: str, cap: int):
+            rows = torch.cat([getattr(r, field).spo.to(home) for r in per_shard])
+            return from_array(rows, cap)
+
+        inter, ovf_i = merge("interesting", out_cap)
+        pot, ovf_q = merge("potential", out_cap)
+        pulls, ovf_p = merge("pulls", pull_cap)
+        overflow = torch.stack([r.overflow.to(home) for r in per_shard]).any() | ovf_i | ovf_q | ovf_p
+        return SideResult(interesting=inter, potential=pot, pulls=pulls, overflow=overflow)
+
+    def run(d_in, d_seg, a_sets, bank_dev, uniq_taus, uniq_tau_spo, uniq_tau_ops, rhos, st: CohortStatics):
+        home = bank_dev.device
+        ncp = len(st.active_host)
+        live = [pos for pos in range(ncp) if st.active_host[pos]]
+        # I_k = A_f(k) ∪ ρ_k (Def 14), replicated on every shard
+        i_sets = {}
+        spo_b = torch.full((ncp, caps.n_i, 3), PAD, dtype=torch.int32, device=home)
+        for pos in live:
+            i_sets[pos] = union(a_sets[st.f_host[pos]], rhos[pos], caps.n_i)
+            spo_b[pos] = i_sets[pos][0].spo
+
+        def shard(parts_spo, parts_ops):
+            my = axis_index(axis)
+            dev = mesh.devices[my]
+
+            bank, lanes, active = _to_device((bank_dev, st.lanes, st.active), dev)
+            f_map = _to_device(st.f_map, dev).long()
+            if delta:
+                # one segmented words pass over this shard's block of union rows
+                rows = _to_device(d_in.spo, dev)
+                cap = rows.shape[0]
+                blk, starts = _blocks(cap, n_shards)
+                sl = slice(starts[my], starts[my] + blk)
+                w_loc = kops.pattern_bitmask_words_segmented(
+                    rows[sl], bank, _to_device(d_seg, dev)[sl], n_frontiers, matcher=matcher
+                )  # (F, blk, W)
+                d_words = _stitch(all_gather(w_loc, axis), cap, blk, starts, dim=1)
+                own = (rows[:, 0] != PAD) & (rows[:, 0] % n_shards == my)
+                own_d = own[None].expand(ncp, cap)
+                d_store = _to_device(d_in, dev)
+            else:
+                # one words pass over this shard's block of every frontier's D
+                spo = torch.stack([_to_device(x.spo, dev) for x in d_in])
+                nfp, cap = spo.shape[0], spo.shape[1]
+                blk, starts = _blocks(cap, n_shards)
+                d_loc = spo[:, starts[my]: starts[my] + blk]
+                w_loc = kops.pattern_bitmask_words(d_loc.reshape(-1, 3), bank, matcher=matcher)
+                d_words = _stitch(all_gather(w_loc.reshape(nfp, blk, -1), axis), cap, blk, starts, dim=1)
+                d_mem = spo[f_map]
+                own_d = (d_mem[:, :, 0] != PAD) & (d_mem[:, :, 0] % n_shards == my)
+            d_bits = kops.lane_bits_batched(d_words[f_map], lanes, active, row_mask=own_d)
+            a_bits = added_side_bits(my, _to_device(spo_b, dev), bank, lanes, active)
+
+            tgts: Dict[int, TripleIndex] = {}
+            out = {}
+            for pos in live:
+                t = st.tgt_host[pos]
+                if t not in tgts:  # this shard's partitions of each replica read
+                    s_rows, o_rows = _to_device(parts_spo[t], dev), _to_device(parts_ops[t], dev)
+                    tgts[t] = TripleIndex(
+                        spo=TripleStore(spo=s_rows, n=_count_valid(s_rows)),
+                        ops=TripleStore(spo=o_rows, n=_count_valid(o_rows)),
+                    )
+                d_set = d_store if delta else _to_device(d_in[st.f_host[pos]], dev)
+                pats = _to_device(st.pats[pos], dev)
+                d_rows, d_pos_bits = _rows_with_bits(d_set, d_bits[pos])
+                a_rows, a_pos_bits = _rows_with_bits(_to_device(i_sets[pos][0], dev), a_bits[pos])
+                out[pos] = (
+                    eval_d(d_rows, tgts[t], d_pos_bits, pats),
+                    eval_a(a_rows, tgts[t], a_pos_bits, pats),
+                )
+            return out
+
+        per_shard = run_spmd(
+            mesh,
+            shard,
+            [tuple(p[i] for p in uniq_tau_spo) for i in range(n_shards)],
+            [tuple(p[i] for p in uniq_tau_ops) for i in range(n_shards)],
+        )
+        tau1s: List[Optional[TripleStore]] = [None] * ncp
+        rho1s: List[Optional[TripleStore]] = [None] * ncp
+        outs: List[Optional[EvalOutputs]] = [None] * ncp
+        for pos in live:
+            d_res = merge_side([r[pos][0] for r in per_shard], caps.n_removed, caps.pulls, home)
+            a_res = merge_side([r[pos][1] for r in per_shard], caps.n_i, caps.pulls, home)
+            t = st.tgt_host[pos]
+            tau1s[pos], rho1s[pos], outs[pos] = combine_side_results(
+                d_res, a_res, uniq_taus[t], rhos[pos], caps, i_sets[pos][1]
+            )
+        return tuple(tau1s), tuple(rho1s), tuple(outs)
+
+    if delta:
+
+        def step_delta(d_union, d_seg, a_sets, bank_dev, uniq_taus, uniq_tau_spo, uniq_tau_ops, rhos, st):
+            return run(d_union, d_seg, a_sets, bank_dev, uniq_taus, uniq_tau_spo, uniq_tau_ops, rhos, st)
+
+        return step_delta
+
+    def step(d_sets, a_sets, bank_dev, uniq_taus, uniq_tau_spo, uniq_tau_ops, rhos, st):
+        return run(d_sets, None, a_sets, bank_dev, uniq_taus, uniq_tau_spo, uniq_tau_ops, rhos, st)
+
+    return step
+
+
+def _rows_with_bits(m: TripleStore, bits: torch.Tensor) -> Tuple[TripleStore, torch.Tensor]:
+    """The rows of ``m`` whose routed bits are not all zero, in order, and
+    their bits: the only rows that give a side evaluation candidates,
+    signatures or outputs (at least one row, PAD if none has bits)."""
+    keep = torch.nonzero(bits != 0).squeeze(1)
+    if keep.numel() == 0:
+        spo = torch.full((1, 3), PAD, dtype=torch.int32, device=bits.device)
+        return TripleStore(spo=spo, n=_count_valid(spo)), torch.zeros_like(bits[:1])
+    spo = m.spo[keep]
+    return TripleStore(spo=spo, n=_count_valid(spo)), bits[keep]
+
+
+def _seg_local_bits(seg: torch.Tensor, slots: Tuple[int, ...]) -> torch.Tensor:
+    """Remap a frontier chain's membership bitmap from global frontier
+    indices to a cohort's dense local slots: output bit ``l`` is input bit
+    ``slots[l]`` (the sharded delta step's segmented pass reads local slots,
+    which key ``f_map``)."""
+    out = torch.zeros_like(seg)
+    for l, fi in enumerate(slots):
+        out = out | (((seg >> fi) & 1) << l)
+    return out
+
+
 _EMPTY_STORES: Dict[tuple, TripleStore] = {}
 
 
@@ -551,6 +816,9 @@ class BrokerSubscription:
         self.id_capacity = dictionary.id_capacity * caps.id_headroom
         self.tau = empty(caps.tau, device)
         self.rho = empty(caps.rho, device)
+        # bumped on every τ assignment; keys the broker's τ-partition cache,
+        # so only replicas whose τ changed are partitioned again
+        self.tau_version = 0
         self.lanes: Tuple[int, ...] = ()  # bank lane map (broker-managed)
         self.since = 1  # first unconsumed changeset id (broker-managed)
         self.last_push_t = time.perf_counter()
@@ -577,8 +845,10 @@ class BrokerSubscription:
         self.plan = compile_interest(self.expr, self.dictionary)
         self.shape_key = _plan_shape_key(self.plan)
         self.id_capacity = self.dictionary.id_capacity * self.caps.id_headroom
-        self.tau, _ = union(empty(self.caps.tau, self.device), self.tau, self.caps.tau)
-        self.rho, _ = union(empty(self.caps.rho, self.device), self.rho, self.caps.rho)
+        # on the device τ/ρ live on (a placed cohort's)
+        self.tau, _ = union(empty(self.caps.tau, self.tau.device), self.tau, self.caps.tau)
+        self.rho, _ = union(empty(self.caps.rho, self.rho.device), self.rho, self.caps.rho)
+        self.tau_version += 1
 
     def init_target(self, triples: np.ndarray) -> bool:
         """Load the initial RDFSlice-style subset into τ. True if caps grew."""
@@ -588,6 +858,7 @@ class BrokerSubscription:
             store, overflow = from_array(rows, self.caps.tau)
             if not bool(overflow):
                 self.tau = store
+                self.tau_version += 1
                 return grew
             self.recompile(self.caps.doubled())
             grew = True
@@ -678,6 +949,15 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _to_device(x, device: torch.device):
+    """Stores, tensors and tuples of them on ``device`` (a no-op where they are)."""
+    if isinstance(x, TripleStore):
+        return TripleStore(spo=x.spo.to(device), n=x.n.to(device))
+    if isinstance(x, tuple):
+        return tuple(_to_device(y, device) for y in x)
+    return x.to(device)
+
+
 class Broker:
     """Host orchestrator running every registered interest through shared passes.
 
@@ -702,6 +982,14 @@ class Broker:
     ``journal`` (a :class:`~repro_torch.core.journal.ChangesetJournal`) and
     ``channel`` (a :class:`~repro_torch.core.delivery.DeliveryChannel`) turn
     on the durability layer (module docstring, layer 5).
+
+    ``mesh`` (a :class:`~repro_torch.core.distributed.DeviceMesh`) turns on
+    multi-device evaluation (module docstring, layer 6): cohorts placed on
+    mesh devices by ``placement`` (default round robin), or with
+    ``shard_cohorts=True`` every cohort pass spread over the whole mesh.
+    ``device`` then defaults to the mesh's first device and must be of the
+    mesh's type. ``device_passes`` counts the cohort passes per mesh device
+    index.
     """
 
     def __init__(
@@ -712,6 +1000,9 @@ class Broker:
         deferred_device_resident: bool = True,
         delta_frontiers: bool = True,
         subsume_interests: bool = True,
+        mesh: DeviceMesh | None = None,
+        placement: CohortPlacement | None = None,
+        shard_cohorts: bool = False,
         decay_patience: int = 2,
         journal: ChangesetJournal | None = None,
         channel: DeliveryChannel | None = None,
@@ -720,7 +1011,26 @@ class Broker:
     ):
         # `dictionary or Dictionary()` would discard an *empty* dictionary
         self.dictionary = dictionary if dictionary is not None else Dictionary()
+        self.mesh = mesh
+        self.shard_cohorts = shard_cohorts
+        if mesh is not None:
+            self._n_shards = mesh.size
+            self._devices = list(mesh.devices)
+            if device is None:
+                device = mesh.devices[0]
+        else:
+            self._n_shards = 1
+            self._devices = []
         self.device = resolve_device(device)
+        if any(d.type != self.device.type for d in self._devices):
+            raise ValueError(f"the broker's device {self.device} and the mesh's {self._devices} differ in type")
+        self.placement = placement if placement is not None else CohortPlacement()
+        self.device_passes: Dict[int, int] = {}  # device index -> cohort passes
+        # τ partitions per (sub serial, τ version, cap, n_shards); the all-PAD
+        # block of padding slots; the bank per (version, device index)
+        self._tau_parts_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._empty_parts_cache: Dict[tuple, torch.Tensor] = {}
+        self._bank_dev_for: Dict[tuple, torch.Tensor] = {}
         self.matcher = matcher
         self.subs: List[BrokerSubscription] = []
         self.stats: List[BrokerStats] = []
@@ -815,6 +1125,10 @@ class Broker:
         the channel's). With a journal, the call's arguments are journaled
         before any state changes, so that replay lands on the same state.
         """
+        if self.shard_cohorts and caps.dedup_candidates:
+            raise ValueError(
+                "shard_cohorts=True requires caps.dedup_candidates == 0 (see make_sharded_cohort_step)"
+            )
         jid = self._jid_next if _jid is None else _jid
         self._seq += 1
         if self.journal is not None and not self._replaying:
@@ -931,7 +1245,9 @@ class Broker:
 
     # -- step cache ---------------------------------------------------------
 
-    def _ensure_bank_dev(self) -> torch.Tensor:
+    def _ensure_bank_dev(self, dev: int | None = None) -> torch.Tensor:
+        """The padded device bank; with ``dev``, its copy on mesh device
+        ``dev`` (one per bank version and device)."""
         if self._bank_dev is None or self._bank_version != self.bank.version:
             self._bank_dev = torch.as_tensor(self.bank.patterns_padded(), device=self.device)
             self._bank_real_dev = self._bank_dev
@@ -943,7 +1259,57 @@ class Broker:
                     self._refine_dev = (torch.as_tensor(ra[0], device=self.device),
                                         torch.as_tensor(ra[1], device=self.device))
             self._bank_version = self.bank.version
-        return self._bank_dev
+            self._bank_dev_for.clear()
+        if dev is None:
+            return self._bank_dev
+        key = (self._bank_version, dev)
+        placed = self._bank_dev_for.get(key)
+        if placed is None:
+            placed = self._bank_dev_for.setdefault(key, self._bank_dev.to(self._devices[dev]))
+        return placed
+
+    def _tau_partitions(self, sub: BrokerSubscription, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Hash-partitioned (SPO, OPS) shards of one subscription's τ,
+        int32[n_shards, c, 3] each, made on the device.
+
+        Cached per (subscription serial, τ version, capacity, mesh size):
+        churn and fires of other subscriptions leave the key alone, so only
+        replicas whose τ changed (or whose capacity grew) are partitioned
+        again. A τ version only grows, so a new version evicts its
+        subscription's older ones. The reference gives every shard the
+        replica's capacity ``cap``, so that a partition never overflows; on
+        one card that is ``n_shards`` replicas' memory. Here ``c`` is the
+        least power of two that holds the fullest shard (at most ``cap``):
+        no partition overflows either, and a probe's answer does not depend
+        on the PAD rows after a partition's last row.
+        """
+        key = (sub.serial, sub.tau_version, cap, self._n_shards)
+        hit = self._tau_parts_cache.get(key)
+        if hit is not None:
+            self._tau_parts_cache.move_to_end(key)
+            return hit
+        for old in [k for k in self._tau_parts_cache if k[0] == sub.serial]:
+            del self._tau_parts_cache[old]
+        rows = sub.tau.spo[sub.tau.spo[:, 0] != PAD]
+        per_shard = torch.stack([torch.bincount(rows[:, col] % self._n_shards, minlength=self._n_shards)
+                                 for col in (0, 2)])  # by subject (SPO), by object (OPS)
+        fullest = max(int(per_shard.max()), 1)
+        spo, ops, _ = shard_target_store(sub.tau, self._n_shards, min(cap, next_pow2(fullest)))
+        parts = (spo, ops)
+        self._tau_parts_cache[key] = parts
+        while len(self._tau_parts_cache) > self.exec_cache_max:
+            self._tau_parts_cache.popitem(last=False)
+        return parts
+
+    def _empty_parts(self, cap: int) -> torch.Tensor:
+        """All-PAD τ partition block for padded unique-target slots."""
+        key = (cap, self._n_shards)
+        block = self._empty_parts_cache.get(key)
+        if block is None:
+            block = self._empty_parts_cache.setdefault(
+                key, torch.full((self._n_shards, cap, 3), PAD, dtype=torch.int32, device=self.device)
+            )
+        return block
 
     def _build_exec(self, key: tuple, builder: Callable) -> Callable:
         """Fetch or build one step; build time goes to ``rejit_s``."""
@@ -1232,10 +1598,12 @@ class Broker:
         ncp: int,
         nt: int,
         bank_rows: int,
+        device=None,
     ) -> CohortStatics:
-        """Membership-static inputs of one cohort pass, cached under the full
-        membership signature (members, plan versions, replica grouping,
-        frontier slots, bank version)."""
+        """Membership-static inputs of one cohort pass, on ``device`` (default
+        the broker's), cached under the full membership signature (members,
+        plan versions, replica grouping, frontier slots, bank version); the
+        cohort key names the device."""
         subs = self.subs
         key = (
             ckey,
@@ -1263,7 +1631,7 @@ class Broker:
             ncp,
             nt,
             bank_rows,
-            self.device,
+            self.device if device is None else device,
         )
         self._static_arrays_cache[key] = statics
         while len(self._static_arrays_cache) > self.exec_cache_max:
@@ -1286,6 +1654,8 @@ class Broker:
         dev = self.device
         # the matcher is built into the steps, so it is part of every key
         mkey = id(self.matcher) if self.matcher is not None else None
+        sharded = self.mesh is not None and self.shard_cohorts
+        placed = self.mesh is not None and not self.shard_cohorts
         # the chain needs >= 2 frontiers on the device-resident path, and
         # its int32 membership bitmap holds at most 32 frontier slots
         delta_ok = (
@@ -1347,23 +1717,25 @@ class Broker:
 
             # the deleted side: the segmented pass over the chain's union, or
             # one stacked pass over every frontier's D store (padding slots
-            # carry empty stores)
-            d_stores = None
-            if chain is not None:
-                wkey = ("words-seg", u_cap, n_words_p, n_words_r, nfp, mkey)
-                words_args = (chain.union.spo, chain.seg, bank_real, refine)
-            else:
-                d_stores = [fr.d_store(d_cap) for fr in fronts]
-                d_spos = [st.spo for st in d_stores] + [_empty_cached(d_cap, dev).spo] * (nfp - nf)
-                wkey = ("words", d_cap, n_words_p, n_words_r, nfp, mkey)
-                words_args = (d_spos, None, bank_real, refine)
-            miss = wkey not in self._exec_cache
-            words_fn = self._build_exec(
-                wkey, lambda: self._words_step(nfp, u_cap if chain is not None else d_cap, chain is not None)
-            )
-            if miss:
-                self.words_compiles += 1
-            d_words_all = words_fn(*words_args)  # (nfp, u_cap or d_cap, W)
+            # carry empty stores). The sharded step computes its own words,
+            # block-split across the shards, so it skips this pass.
+            d_stores = None if chain is not None else [fr.d_store(d_cap) for fr in fronts]
+            d_words_all = None
+            if not sharded:
+                if chain is not None:
+                    wkey = ("words-seg", u_cap, n_words_p, n_words_r, nfp, mkey)
+                    words_args = (chain.union.spo, chain.seg, bank_real, refine)
+                else:
+                    d_spos = [st.spo for st in d_stores] + [_empty_cached(d_cap, dev).spo] * (nfp - nf)
+                    wkey = ("words", d_cap, n_words_p, n_words_r, nfp, mkey)
+                    words_args = (d_spos, None, bank_real, refine)
+                miss = wkey not in self._exec_cache
+                words_fn = self._build_exec(
+                    wkey, lambda: self._words_step(nfp, u_cap if chain is not None else d_cap, chain is not None)
+                )
+                if miss:
+                    self.words_compiles += 1
+                d_words_all = words_fn(*words_args)  # (nfp, u_cap or d_cap, W)
 
             a_cache: Dict[Tuple[int, int], TripleStore] = {}
 
@@ -1378,10 +1750,22 @@ class Broker:
                     s = subs[k]
                     cohorts.setdefault((s.shape_key, s.caps, s.id_capacity), []).append((fi, k))
 
+            # placement: a sticky cohort -> device assignment, the cohorts run
+            # grouped by device; the sharded step spans every device
+            cohort_items = list(cohorts.items())
+            cohort_dev: Dict[tuple, Optional[int]] = {
+                key: self.placement.assign(key, next_pow2(len(fk)), len(self._devices)) if placed else None
+                for key, fk in cohort_items
+            }
+            if placed:
+                cohort_items.sort(key=lambda kv: cohort_dev[kv[0]])
+
             staged: Dict[int, Tuple[TripleStore, TripleStore]] = {}
             outs: Dict[int, EvalOutputs] = {}
             overflowed: List[int] = []
-            for (skey, caps, id_cap), fk in cohorts.items():
+            for (skey, caps, id_cap), fk in cohort_items:
+                didx = cohort_dev[(skey, caps, id_cap)]
+                cdev = self._devices[didx] if didx is not None else dev
                 rep = subs[fk[0][1]]
                 nt = rep.plan.n_total
                 # frontier slots this cohort uses -> dense local slots
@@ -1424,43 +1808,76 @@ class Broker:
                 self.fanout_copies += len(fk)
 
                 pad_f = nfcp - nfc
-                if chain is not None:
-                    # one union store for the whole cohort; each frontier's
-                    # masked words select its rows
-                    d_sets = chain.union
-                    w_rows = u_cap
-                    d_words = tuple(d_words_all[fi] for fi in fs_used)
-                    ckey = ("cohort-delta", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, u_cap, mkey, None)
-                else:
+                d_sets = None
+                if chain is None:
                     d_sets = tuple(
                         TripleStore(spo=d_stores[fi].spo[: caps.n_removed], n=d_stores[fi].n)
                         for fi in fs_used
-                    ) + (_empty_cached(caps.n_removed, dev),) * pad_f
-                    w_rows = caps.n_removed
-                    d_words = tuple(d_words_all[fi, : caps.n_removed] for fi in fs_used)
-                    ckey = ("cohort", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, mkey, None)
-                if pad_f:
-                    zero_w = torch.zeros((w_rows, n_words_p), dtype=torch.int32, device=dev)
-                    d_words = d_words + (zero_w,) * pad_f
+                    ) + (_empty_cached(caps.n_removed, cdev),) * pad_f
                 a_sets = tuple(a_of(fi, caps.n_added) for fi in fs_used) + (
-                    _empty_cached(caps.n_added, dev),
+                    _empty_cached(caps.n_added, cdev),
                 ) * pad_f
                 uniq_taus = tuple(subs[g[0]].tau for g in ugroups) + (
-                    _empty_cached(caps.tau, dev),
+                    _empty_cached(caps.tau, cdev),
                 ) * (nup - nu)
-                rhos_c = tuple(subs[k].rho for k in members) + (_empty_cached(caps.rho, dev),) * (ncp - nm)
-                statics = self._static_arrays(ckey, eval_fk, f_list, eval_upos, ncp, nt, bank_dev.shape[0])
+                rhos_c = tuple(subs[k].rho for k in members) + (_empty_cached(caps.rho, cdev),) * (ncp - nm)
+                if sharded:
+                    if chain is not None:
+                        ckey = ("cohort-sh-delta", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, u_cap,
+                                self._n_shards, mkey)
+                    else:
+                        ckey = ("cohort-sh", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, self._n_shards, mkey)
+                    statics = self._static_arrays(ckey, eval_fk, f_list, eval_upos, ncp, nt, bank_dev.shape[0])
+                    parts = [self._tau_partitions(subs[g[0]], caps.tau) for g in ugroups]
+                    pad_part = (self._empty_parts(1),) * (nup - nu)  # padding slots are never read
+                    uniq_spo = tuple(p[0] for p in parts) + pad_part
+                    uniq_ops = tuple(p[1] for p in parts) + pad_part
+                    if chain is not None:
+                        # membership bits at the cohort's dense frontier slots (they key f_map)
+                        d_args = (chain.union, _seg_local_bits(chain.seg, tuple(fs_used)))
+                    else:
+                        d_args = (d_sets,)
+                    args = (*d_args, a_sets, bank_dev, uniq_taus, uniq_spo, uniq_ops, rhos_c, statics)
+
+                    def builder(rep=rep, caps=caps, id_cap=id_cap, nfcp=nfcp, delta=chain is not None):
+                        return make_sharded_cohort_step(
+                            rep.plan, caps, id_cap, self.mesh, matcher=self.matcher, delta=delta, n_frontiers=nfcp,
+                        )
+                else:
+                    if chain is not None:
+                        # one union store for the whole cohort; each frontier's
+                        # masked words select its rows
+                        d_in = chain.union
+                        w_rows = u_cap
+                        d_words = tuple(d_words_all[fi] for fi in fs_used)
+                        ckey = ("cohort-delta", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, u_cap, mkey, didx)
+                    else:
+                        d_in = d_sets
+                        w_rows = caps.n_removed
+                        d_words = tuple(d_words_all[fi, : caps.n_removed] for fi in fs_used)
+                        ckey = ("cohort", skey, caps, id_cap, ncp, nup, nfcp, n_words_p, mkey, didx)
+                    if pad_f:
+                        zero_w = torch.zeros((w_rows, n_words_p), dtype=torch.int32, device=dev)
+                        d_words = d_words + (zero_w,) * pad_f
+                    statics = self._static_arrays(ckey, eval_fk, f_list, eval_upos, ncp, nt, bank_dev.shape[0],
+                                                  device=cdev)
+                    args = (d_in, d_words, a_sets, bank_dev, uniq_taus, rhos_c)
+                    if placed:
+                        # every operand on the cohort's device: resident state
+                        # and the bank's copy are there, the frontier's slices move
+                        args = _to_device(args[:3], cdev) + (self._ensure_bank_dev(didx),) + _to_device(args[4:], cdev)
+                    args = args + (statics,)
+
+                    def builder(rep=rep, caps=caps, id_cap=id_cap, delta=chain is not None):
+                        return make_cohort_step(rep.plan, caps, id_cap, matcher=self.matcher, delta=delta)
                 miss = ckey not in self._exec_cache
-                fn = self._build_exec(
-                    ckey,
-                    lambda rep=rep, caps=caps, id_cap=id_cap: make_cohort_step(
-                        rep.plan, caps, id_cap, matcher=self.matcher, delta=chain is not None
-                    ),
-                )
+                fn = self._build_exec(ckey, builder)
                 if miss:
                     self.cohort_compiles[ckey] = self.cohort_compiles.get(ckey, 0) + 1
-                tau1_c, rho1_c, out_c = fn(d_sets, d_words, a_sets, bank_dev, uniq_taus, rhos_c, statics)
+                tau1_c, rho1_c, out_c = fn(*args)
                 n_passes += 1
+                for i in range(len(self._devices)) if sharded else (didx or 0,):
+                    self.device_passes[i] = self.device_passes.get(i, 0) + 1
                 for g in ugroups:
                     pos0 = members.index(g[0])
                     out = out_c[pos0]
@@ -1521,13 +1938,31 @@ class Broker:
         raise RuntimeError("per-interest fallback fire failed to converge after 64 doublings")
 
     def _commit_staged(self, staged: Dict[int, Tuple[TripleStore, TripleStore]]) -> None:
-        """Commit the staged (τ', ρ'); wait for the device so that
-        ``elapsed_s`` covers the work."""
+        """Commit the staged (τ', ρ'); wait for every device written so that
+        ``elapsed_s`` covers the work.
+
+        Only the sharded path reads the τ-partition cache, and only a τ that
+        changed should invalidate it: a fire that missed an interest commits
+        an equal τ, and partitioning it again would redo the work the cache
+        saves. Comparisons are memoized on the (old, new) pair, so a shared
+        replica is compared once.
+        """
+        sharded = self.mesh is not None and self.shard_cohorts
+        unchanged_cache: Dict[Tuple[int, int], bool] = {}
         for k, (tau1, rho1) in staged.items():
             s = self.subs[k]
+            unchanged = False
+            if sharded:
+                pair = (id(s.tau.spo), id(tau1.spo))
+                unchanged = unchanged_cache.get(pair)
+                if unchanged is None:
+                    unchanged = s.tau.spo.shape == tau1.spo.shape and torch.equal(s.tau.spo, tau1.spo)
+                    unchanged_cache[pair] = unchanged
+            if not unchanged:
+                s.tau_version += 1
             s.tau, s.rho = tau1, rho1
-        if staged:
-            _synchronize(self.device)
+        for device in {tau1.spo.device for tau1, _ in staged.values()}:
+            _synchronize(device)
 
     # -- durability: snapshot, compaction, recovery --------------------------
 

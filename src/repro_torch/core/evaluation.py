@@ -174,6 +174,8 @@ def make_side_evaluator(
     out_capacity: int,
     pull_capacity: int,
     matcher: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    probe_impl: Callable | None = None,
+    table_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
     dedup_candidates: int = 0,
     dynamic_patterns: bool = False,
 ) -> Callable[..., SideResult]:
@@ -189,6 +191,18 @@ def make_side_evaluator(
     (int32[n_total, 3] on the device) and the probes read them through
     :func:`probe_dyn`; ``plan`` then supplies only the static structure
     (kinds, slots, which slots are constant), shared by the cohort.
+
+    ``probe_impl`` and ``table_reduce`` are the distribution hooks
+    (:mod:`repro_torch.core.distributed`): the sharded evaluator routes each
+    probe to the shard owning its binding and OR-reduces the signature
+    tables and edge vectors across the shards. The probe hook takes
+    :func:`probe`'s arguments, ``(index, pattern, bound_slot, bound_vals,
+    fanout)``, or with ``dynamic_patterns`` :func:`probe_dyn`'s,
+    ``(index, pattern_host, pattern_dev, bound_slot, bound_vals, fanout)``;
+    ``table_reduce`` sees boolean tables (the generation and target
+    signature columns stacked into one bool[R, k] table, then each edge and
+    linked-full vector). Without them the evaluator probes its own index
+    and reduces nothing.
     """
     matcher = matcher or kops.pattern_bitmask
     dedup_cap = dedup_candidates
@@ -257,8 +271,24 @@ def make_side_evaluator(
                 pats = patterns_dev[dev] = patterns_host.to(dev)
 
         def run_probe(j: int, bound_slot: int, bound_vals: torch.Tensor):
-            # the values come from the device copy either way: no upload per probe
-            return probe_dyn(tgt, plan.patterns[j], pats[j], bound_slot, bound_vals, K)
+            if probe_impl is None:
+                # the values come from the device copy either way: no upload per probe
+                return probe_dyn(tgt, plan.patterns[j], pats[j], bound_slot, bound_vals, K)
+            if dynamic_patterns:
+                return probe_impl(tgt, plan.patterns[j], pats[j], bound_slot, bound_vals, K)
+            return probe_impl(tgt, plan.patterns[j], bound_slot, bound_vals, K)
+
+        def reduce_columns(cols: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+            """The reference's ``table_reduce(sat)`` over the (R, nt) table:
+            every column this side sets, in one reduction."""
+            if table_reduce is None or not cols:
+                return cols
+            js = list(cols)
+            red = table_reduce(torch.stack([cols[j] for j in js], dim=1))
+            return {j: red[:, i] for i, j in enumerate(js)}
+
+        def reduce_vec(vec: torch.Tensor) -> torch.Tensor:
+            return vec if table_reduce is None else table_reduce(vec)
 
         def pad_vec(length: int) -> torch.Tensor:
             return torch.full((length,), PAD, dtype=torch.int32, device=dev)
@@ -283,6 +313,7 @@ def make_side_evaluator(
         sat_gen: Dict[int, torch.Tensor] = {}
         for j in root_js + child_js:
             sat_gen[j] = scatter_true(R, spo[:, anchor[j]], bit(j))
+        sat_gen = reduce_columns(sat_gen)
 
         # -- candidate pools + upward edge discovery -----------------------
         edge_pool: Dict[int, List[Tuple]] = {e: [] for e in edge_js}
@@ -334,6 +365,7 @@ def make_side_evaluator(
             rows, val = run_probe(j, anchor[j], root_cand)
             pull_entries.append(("root", j, -1, root_cand, rows, val))
             sat_tgt[j] = scatter_true(R, root_cand, val.any(dim=1))
+        sat_tgt = reduce_columns(sat_tgt)
 
         def sat(j: int) -> torch.Tensor:
             return sat_gen[j] | sat_tgt[j]
@@ -352,7 +384,7 @@ def make_side_evaluator(
             for b_f, c_f, val_f, rows_f, is_pull in edge_pool[e]:
                 v = val_f & gather_bool(child_ok[cvar[e]], c_f)
                 acc = acc | scatter_true(R, b_f, v)
-            edge_ok[e] = acc
+            edge_ok[e] = reduce_vec(acc)
 
         full = torch.ones(R, dtype=torch.bool, device=dev)
         for j in bgp_root_js:
@@ -369,7 +401,7 @@ def make_side_evaluator(
                 for b_f, c_f, val_f, rows_f, is_pull in edge_pool[e]:
                     v = val_f & gather_bool(full, b_f)
                     acc = acc | scatter_true(R, c_f, v)
-            linked_full[cv] = acc
+            linked_full[cv] = reduce_vec(acc)
 
         # -- per-triple classification (Defs 8-10) ---------------------------
         inter = torch.zeros(n, dtype=torch.bool, device=dev)

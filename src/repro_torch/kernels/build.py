@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -38,6 +39,10 @@ NVCC_FLAGS = (
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's -Xptxas -v report per built library
+# one build or load at a time; the wrappers' launch counters take
+# count_lock, since a mesh's shards launch from several threads
+_lock = threading.Lock()
+count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -93,9 +98,23 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of one kernel, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _loaded[name] = lib
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build([name])[name]))
+                _loaded[name] = lib
     return lib
+
+
+def preload() -> None:
+    """Build (in parallel) and load every kernel library now: a device
+    mesh's shard threads then only look them up."""
+    if all(name in _loaded for name in SOURCES):
+        return
+    with _lock:
+        build()
+    for name in SOURCES:
+        library(name)
 
 
 def check(status: int, what: str) -> None:

@@ -86,5 +86,6 @@ def lane_refine_cuda(
             status = _entry()(spo.data_ptr(), stride, planes.data_ptr(), f, n, n_words, parents.data_ptr(),
                               residual.data_ptr(), vp, n_out, out.data_ptr(), stream)
         build.check(status, "lane_refine launch")
-        launches += 1
+        with build.count_lock:
+            launches += 1
     return out if words.ndim == 3 else out[0]

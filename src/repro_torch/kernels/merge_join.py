@@ -100,7 +100,8 @@ def _launch(store, q0, q1, mode: str, tile_counts: Optional[torch.Tensor]):
             tile_counts.data_ptr() if tile_counts is not None else None, stream,
         )
     build.check(status, "merge_probe launch")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out0, out1
 
 

@@ -134,11 +134,17 @@ def lane_bits(words: torch.Tensor, lanes) -> torch.Tensor:
 
 
 def lane_bits_batched(
-    words: torch.Tensor, lanes_arr: torch.Tensor, active: torch.Tensor | None = None
+    words: torch.Tensor,
+    lanes_arr: torch.Tensor,
+    active: torch.Tensor | None = None,
+    row_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """int32[R, N] lane routing for a cohort: member ``k``'s bit ``j`` is bank
     lane ``lanes_arr[k, j]`` of ``words[k]`` (int32[R, N, W]); members with
-    ``active`` False (cohort padding) give 0. Plain PyTorch on every device."""
+    ``active`` False (cohort padding) give 0. ``row_mask`` (bool[R, N]), the
+    sharded broker's row ownership, zeroes the bits of the rows a shard does
+    not own, so they yield no candidates, signatures or outputs there.
+    Plain PyTorch on every device."""
     r, n, _ = words.shape
     lanes = lanes_arr.to(words.device).long()
     acc = torch.zeros((r, n), dtype=torch.int32, device=words.device)
@@ -147,6 +153,8 @@ def lane_bits_batched(
         acc = ref.or_bit(acc, ((w >> (lanes[:, j] % 32).to(torch.int32)[:, None]) & 1) == 1, j)
     if active is not None:
         acc = torch.where(active.to(words.device, torch.bool)[:, None], acc, torch.zeros_like(acc))
+    if row_mask is not None:
+        acc = torch.where(row_mask.to(words.device, torch.bool), acc, torch.zeros_like(acc))
     return acc
 
 

@@ -65,5 +65,6 @@ def triple_match_cuda(spo: torch.Tensor, patterns: torch.Tensor) -> torch.Tensor
             spo.data_ptr(), n, patterns.data_ptr(), patterns.shape[0], out.data_ptr(), stream
         )
     build.check(status, "triple_match launch")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out

@@ -82,5 +82,6 @@ def triple_match_lanes_cuda(
             lanes.shape[1], active.data_ptr(), out.data_ptr(), stream,
         )
     build.check(status, "triple_match_lanes launch")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out

@@ -64,5 +64,6 @@ def triple_match_words_cuda(spo: torch.Tensor, bank: torch.Tensor) -> torch.Tens
         stream = torch.cuda.current_stream().cuda_stream
         status = _entry()(spo.data_ptr(), n, bank.data_ptr(), n_pat, n_words, out.data_ptr(), stream)
     build.check(status, "triple_match_words launch")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out

@@ -74,5 +74,6 @@ def triple_match_words_segmented_cuda(
         status = _entry()(spo.data_ptr(), seg.data_ptr(), n, bank.data_ptr(), n_pat, n_words, n_seg,
                           out.data_ptr(), stream)
     build.check(status, "triple_match_words_segmented launch")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out

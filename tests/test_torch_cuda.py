@@ -634,3 +634,106 @@ def test_journaled_broker_recovers_on_the_card_as_on_the_cpu(card, tmp_path):
     for name in ("triple_match_words", "triple_match_lanes", "merge_probe", "triple_match_words_segmented",
                  "lane_refine"):
         assert gpu_counts[name] > 0, name
+
+
+MESH_KINDS = ["sharded", "placed"]
+
+
+@pytest.mark.parametrize("options", [{}, {"subsume_interests": False, "delta_frontiers": False}])
+@pytest.mark.parametrize("kind", MESH_KINDS)
+def test_mesh_brokers_on_the_card_equal_the_cpu(card, kind, options):
+    """The virtual-lanes script above through a broker over 4 logical shards
+    of the card (sharded, or placed by load), against the single-device
+    broker on the CPU: every store equal; the sharded broker launches K2,
+    K5 and its words kernel (K6 for the chained fires, K4 otherwise)."""
+    from repro_torch.core.distributed import CohortPlacement, DeviceMesh
+
+    d = tcore.Dictionary()
+    tau0 = d.encode_triples([("dbr:M", A, "dbo:Athlete"), ("dbr:C", A, "dbo:Athlete"), ("dbr:C", "dbp:goals", "96")])
+    changesets = [
+        (d.encode_triples([("dbr:C", "dbp:goals", "96")]),
+         d.encode_triples([("dbr:C", "dbp:goals", "216"), ("dbr:R", A, "dbo:Athlete"), ("dbr:R", "dbp:goals", "3")])),
+        (d.encode_triples([("dbr:R", "dbp:goals", "3")]), d.encode_triples([("dbr:M", "dbp:goals", "10")])),
+        (d.encode_triples([("dbr:C", "dbp:goals", "216")]), d.encode_triples([("dbr:C", "dbp:goals", "217")])),
+    ]
+    interests = [
+        ([("?a", "dbp:goals", "?g")], None),
+        ([("?x", "dbp:goals", "?y")], None),
+        ([("dbr:C", "dbp:goals", "?g")], tcore.PushPolicy.every(2)),
+        ([("?a", A, "dbo:Athlete"), ("?a", "dbp:goals", "?g")], tcore.PushPolicy.max_staleness(1e9)),
+    ]
+    mesh_kw = (dict(shard_cohorts=True) if kind == "sharded"
+               else dict(placement=CohortPlacement(mode="load_balanced")))
+    runs = {}
+    for device in ("cpu", card):
+        kernels.reset_launch_counts()
+        extra = dict(mesh=DeviceMesh.on_card(4), **mesh_kw) if device != "cpu" else {}
+        broker = tcore.Broker(d, device=device, **options, **extra)
+        for bgp, pol in interests:
+            broker.subscribe(tcore.InterestExpr.parse("s", "t", bgp),
+                             tcore.StepCapacities(n_removed=16, n_added=16, tau=64, rho=64, pulls=32),
+                             initial_target=tau0, policy=pol)
+        outs = [broker.process_changeset(*c) for c in changesets] + [broker.flush()]
+        stores = [None if o is None else getattr(o, f) for call in outs for o in call
+                  for f in ("r", "r_i", "r_prime", "a", "a_i")]
+        stores += [st for s in broker.subs for st in (s.tau, s.rho)]
+        runs[str(device)] = ([None if st is None else tcore.to_numpy(st) for st in stores], kernels.launch_counts(),
+                             [(st.distinct_interests, st.fanout_copies, st.rows_matched) for st in broker.stats],
+                             broker.device_passes)
+    (cpu_sets, _, cpu_stats, _), (gpu_sets, gpu_counts, gpu_stats, passes) = runs["cpu"], runs[str(card)]
+    assert len(cpu_sets) == len(gpu_sets) and cpu_stats == gpu_stats
+    for a, b in zip(cpu_sets, gpu_sets):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert gpu_counts["triple_match_lanes"] > 0 and gpu_counts["merge_probe"] > 0
+    if kind == "sharded":
+        assert sorted(passes) == [0, 1, 2, 3] and gpu_counts["lane_refine"] == 0
+        words = "triple_match_words" if options else "triple_match_words_segmented"
+        assert gpu_counts[words] > 0, gpu_counts
+    else:
+        assert len(passes) > 1
+
+
+@pytest.mark.parametrize("n_shards,cap", [(3, 4099), (4, 4096), (4, 5), (3, 1027)])
+def test_block_sliced_views_equal_plain(card, n_shards, cap):
+    """K4, K5 and K6 at the sharded step's block-sliced views (starts
+    ``min(my * blk, cap - blk)``, the last block overlapping the one before
+    it where ``n_shards`` does not divide ``cap``): each block equals the
+    plain version on the same view, and the stitched blocks equal one pass
+    over every row."""
+    from repro_torch.core.broker import _blocks, _stitch
+
+    rng = np.random.default_rng(cap + n_shards)
+    bank = np.full((64, 3), PAD, np.int32)
+    bank[:40] = rng.integers(-1, 7, size=(40, 3))
+    spo = rng.integers(0, 7, size=(2, cap, 3)).astype(np.int32)
+    spo[:, rng.random(cap) < 0.1] = PAD
+    seg = rng.integers(0, 4, size=cap).astype(np.int32)
+    lanes = rng.integers(0, 40, size=(3, 5)).astype(np.int32)
+    active = np.array([True, False, True])
+    t = {k: torch.as_tensor(v, device=card) for k, v in
+         dict(bank=bank, spo=spo, seg=seg, lanes=lanes, active=active).items()}
+    c = {k: v.cpu() for k, v in t.items()}
+    i_spo, i_cpu = t["spo"][[0, 1, 0]], c["spo"][[0, 1, 0]]
+    blk, starts = _blocks(cap, n_shards)
+    assert starts[-1] + blk == cap
+    words, lanes_out, seg_out = [], [], []
+    for start in starts:
+        sl = slice(start, start + blk)
+        w = triple_match_words.triple_match_words_cuda(t["spo"][:, sl].reshape(-1, 3), t["bank"]).reshape(2, blk, -1)
+        np.testing.assert_array_equal(
+            w.cpu().numpy(), ref.pattern_bitmask_words_ref(c["spo"][:, sl].reshape(-1, 3), c["bank"]).reshape(2, blk, -1))
+        a = triple_match_lanes.triple_match_lanes_cuda(i_spo[:, sl], t["bank"], t["lanes"], t["active"])
+        np.testing.assert_array_equal(
+            a.cpu().numpy(), ref.pattern_lane_bits_ref(i_cpu[:, sl], c["bank"], c["lanes"], c["active"]).numpy())
+        g = triple_match_words_segmented.triple_match_words_segmented_cuda(t["spo"][0, sl], t["bank"], t["seg"][sl], 2)
+        np.testing.assert_array_equal(
+            g.cpu().numpy(), ref.pattern_bitmask_words_segmented_ref(c["spo"][0, sl], c["bank"], c["seg"][sl], 2).numpy())
+        words.append(w), lanes_out.append(a), seg_out.append(g)
+    full = ref.pattern_bitmask_words_ref(c["spo"].reshape(-1, 3), c["bank"]).reshape(2, cap, -1)
+    np.testing.assert_array_equal(_stitch(torch.stack(words), cap, blk, starts, dim=1).cpu().numpy(), full.numpy())
+    np.testing.assert_array_equal(_stitch(torch.stack(lanes_out), cap, blk, starts, dim=1).cpu().numpy(),
+                                  ref.pattern_lane_bits_ref(i_cpu, c["bank"], c["lanes"], c["active"]).numpy())
+    np.testing.assert_array_equal(_stitch(torch.stack(seg_out), cap, blk, starts, dim=1).cpu().numpy(),
+                                  ref.pattern_bitmask_words_segmented_ref(c["spo"][0], c["bank"], c["seg"], 2).numpy())
