@@ -91,6 +91,24 @@ Phases, each fatal on failure:
    run's probe exchange bytes and the phase's peak device memory, stamped
    with the card.
 
+10. models: the model plane's serving path at full published widths,
+   float32 parameters and bfloat16 compute unless stated, each model freed
+   before the next: phase 4's Football replica τ verbalized
+   (``Verbalizer``), batched (``ReplicaTokenPipeline``, 4 x 32) and served
+   by internlm2-1.8b through ``launch/serve``'s prefill and 16 greedy
+   decode steps (one decode step profiled); granite-moe-3b-a800m's expert
+   banks perturbed on a seeded quarter of their (layer, expert) rows and
+   published as one ``diff_bank`` changeset a bank to a mirror replica
+   (logits bit-identical to the source's) and a replica of the even
+   experts (those rows the source's, the others the old weights); gemma3-4b
+   in float32 with TF32 off, a decode step at position 1,100 over the
+   wrapped ring (window 1,024) against a 1,101-token prefill; whisper-medium
+   (enc_seq 1,500) and llama-3.2-vision-90b cut to one group (5 of 100
+   layers, gates nonzero), prefill and 8 decode steps; internlm2-1.8b cut to
+   2 layers, float32, one prefill and one decode step on the card and on
+   the CPU with the same weights. Prefill and decode milliseconds, peak
+   device memory, bytes offered and received, stamped with the card.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
 or when it is not run from a checkout of the repository.
@@ -1967,6 +1985,294 @@ def phase_sharded(tcore, device, seed, card):
     check(len(pl.device_passes) > 1, f"the placed cohorts spread over the mesh: {pl.device_passes}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model plane's serving path
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_SEQ, SERVE_DECODE = 4, 32, 16  # replica prompts, greedy steps
+XATTN_BATCH, XATTN_SEQ, XATTN_DECODE = 2, 16, 8  # whisper and the vision model
+SYNC_BATCH, SYNC_SEQ, SYNC_SHARE = 2, 16, 0.25  # (layer, expert) rows perturbed
+RING_PREFILL = 1100  # > gemma3's window of 1,024: the ring has wrapped
+RING_TOL = 1e-4  # float32, TF32 off: prefill(1,101) vs prefill(1,100) + a decode step
+CARD_CPU_TOL = 1e-4  # float32, TF32 off: the card's logits vs the CPU's, same weights
+VISION_CUT = 5  # layers of llama-3.2-vision-90b kept: one group, 4 self + 1 cross
+GATE = 0.5  # the vision model's cross gates, zero at init
+
+
+@contextlib.contextmanager
+def float32_matmuls():
+    """Full float32 products on the card (no TF32), restored after."""
+    import torch
+
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def fresh_model(cfg, device, seed):
+    """A model of ``cfg`` on ``device``, weights drawn from a seeded generator."""
+    import torch
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return build_model(cfg, device).init(torch.Generator(device).manual_seed(seed))
+
+
+def n_params(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def serve_timed(model, batch, n_decode: int):
+    """``launch/serve``'s greedy loop, after one untimed warm-up call."""
+    from repro_torch.launch import serve
+
+    serve.greedy(model, batch, 2)
+    return serve.greedy(model, batch, n_decode + 1)
+
+
+def serve_line(name, out, n_decode, card) -> str:
+    import torch
+
+    return (f"models [{card}]: {name}: prefill {out['prefill_ms']:.2f} ms, decode {out['decode_ms'] / n_decode:.2f} ms "
+            f"a token ({n_decode} steps), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def check_logits(logits, rows: int, cfg, what: str) -> None:
+    import torch
+
+    check(tuple(logits.shape) == (rows, cfg.padded_vocab), f"{what}: logits of shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()), f"{what}: logits are finite")
+
+
+def models_serving(tcore, device, seed, card, football_rows, dictionary):
+    """internlm2-1.8b at full width serves prompts drawn from phase 4's
+    Football replica: verbalized, batched by ``ReplicaTokenPipeline``, then
+    prefill and greedy decode through ``launch/serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.interest import next_pow2
+    from repro_torch.data import ReplicaTokenPipeline, Verbalizer
+
+    cfg = get_config("internlm2-1.8b")
+    replica = tcore.from_numpy(football_rows, next_pow2(football_rows.shape[0]), "cpu")
+    verb = Verbalizer(vocab=cfg.vocab, dictionary=dictionary)
+    pipe = ReplicaTokenPipeline(verb, batch_size=SERVE_BATCH, seq_len=SERVE_SEQ, seed=seed)
+    pipe.refresh(replica)
+    batch = next(pipe)
+    check(batch["tokens"].shape == (SERVE_BATCH, SERVE_SEQ) and 0 <= batch["tokens"].min()
+          and batch["tokens"].max() < cfg.vocab, "replica prompts of the batch's shape inside the vocabulary")
+    model = fresh_model(cfg, device, seed)
+    out = serve_timed(model, {"tokens": batch["tokens"]}, SERVE_DECODE)
+    check(out["tokens"].shape == (SERVE_BATCH, SERVE_DECODE + 1), "a greedy token per step and sequence")
+    check_logits(out["logits"], SERVE_BATCH, cfg, "internlm2 serving")
+    log(f"models: replica → prompts: Football τ {football_rows.shape[0]:,} rows verbalized, "
+        f"batch {SERVE_BATCH} x {SERVE_SEQ}; internlm2-1.8b at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab:,}; {n_params(model) / 1e9:.3f}B float32 parameters, bfloat16 compute)")
+    log(serve_line("internlm2-1.8b", out, SERVE_DECODE, card))
+    log(f"  generated ids (first sequence): {out['tokens'][0].tolist()}")
+    cache = model.prefill({"tokens": batch["tokens"], "max_seq": SERVE_SEQ + 1})[1]
+    tok = out["tokens"][:, 0]
+    profile_call("internlm2-1.8b decode step", lambda: model.decode_step(cache, tok, SERVE_SEQ))
+
+
+def models_param_sync(device, seed, card):
+    """granite-moe-3b-a800m's expert banks published as row changesets to a
+    mirror replica and a replica hosting the even experts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import param_sync as ps
+
+    cfg = get_config("granite-moe-3b-a800m")
+    model = fresh_model(cfg, device, seed)
+    banks = {f"layers.{j}.mlp.{w}": getattr(layer.mlp, w)
+             for j, layer in enumerate(model.layers) for w in ("wg", "wi", "wo")}
+    even = torch.arange(0, cfg.n_experts, 2, device=device)
+    mirror = ps.ParamReplica({n: b.clone() for n, b in banks.items()}, {n: None for n in banks})
+    half = ps.ParamReplica({n: b.clone() for n, b in banks.items()}, {n: even for n in banks})
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device).manual_seed(seed)
+    picked = rng.random((cfg.n_layers, cfg.n_experts)) < SYNC_SHARE  # (layer, expert) rows to perturb
+    old_rows, changesets = {}, []
+    # the mirror's receive is an apply (its filter keeps every row); the
+    # half replica's is a filter and an apply; the filter is also timed alone
+    ms = {"diff": 0.0, "filter": 0.0, "mirror receive (apply)": 0.0, "half receive (filter + apply)": 0.0}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[key] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    for name, bank in banks.items():  # the publisher: perturb, diff, publish
+        rows = torch.as_tensor(np.flatnonzero(picked[int(name.split(".")[1])]), device=device)
+        new = bank.clone()
+        new[rows] += 0.01 * torch.randn(new[rows].shape, generator=gen, device=device)
+        old_rows[name] = (rows, bank[rows].clone())
+        cs = timed("diff", lambda: ps.diff_bank(name, bank, new))
+        check(torch.equal(cs.rows.long(), rows), f"{name}: the diff publishes the perturbed rows")
+        bank.copy_(new)
+        changesets.append(cs)
+        del new
+    for cs in changesets:
+        timed("filter", lambda: ps.filter_changeset(cs, even))
+        timed("mirror receive (apply)", lambda: mirror.receive(cs))
+        timed("half receive (filter + apply)", lambda: half.receive(cs))
+    subscribed = torch.zeros(cfg.n_experts, dtype=torch.bool, device=device)
+    subscribed[even] = True
+    for name, bank in banks.items():
+        check(torch.equal(mirror.banks[name], bank), f"{name}: the mirror equals the source")
+        rows, old = old_rows[name]
+        want = bank.clone()
+        keep_old = ~subscribed[rows]
+        want[rows[keep_old]] = old[keep_old]
+        check(torch.equal(half.banks[name], want),
+              f"{name}: the half replica holds the source's even experts and its own old odd ones")
+    check(0.3 < half.savings < 0.7 and mirror.savings == 0.0, f"savings {half.savings}, {mirror.savings}")
+
+    tokens = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (SYNC_BATCH, SYNC_SEQ)).astype(np.int32)
+
+    def logits_now():
+        first, cache = model.prefill({"tokens": tokens, "max_seq": SYNC_SEQ + 1})
+        step, _ = model.decode_step(cache, first[:, :cfg.vocab].argmax(-1), SYNC_SEQ)
+        return first, step
+
+    src = logits_now()
+    for name, bank in banks.items():  # serve from the mirror's banks
+        bank.data = mirror.banks[name]
+    got = logits_now()
+    check(all(torch.equal(a, b) for a, b in zip(src, got)),
+          "the mirror replica's prefill and decode logits equal the source model's bit for bit")
+    check_logits(got[0], SYNC_BATCH, cfg, "granite mirror")
+    offered = sum(cs.nbytes for cs in changesets)
+    log(f"models [{card}]: granite-moe-3b-a800m at full width ({cfg.n_layers} layers x {cfg.n_experts} experts, "
+        f"top {cfg.top_k}; {n_params(model) / 1e9:.3f}B parameters): {len(changesets)} bank changesets, "
+        f"{int(picked.sum())} of {picked.size} (layer, expert) rows perturbed; offered {offered / 2**20:.1f} MiB, "
+        f"received: mirror {mirror.bytes_received / 2**20:.1f} MiB, even-experts replica "
+        f"{half.bytes_received / 2**20:.1f} MiB (savings {half.savings:.4f}); ms over all banks: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; mirror logits bit-identical to the source's; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def models_ring(device, seed, card):
+    """gemma3-4b (local/global, window 1,024) in float32: a decode step at
+    position 1,100 over a wrapped ring against a prefill over 1,101 tokens."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("gemma3-4b"), dtype="float32")
+    check(RING_PREFILL > cfg.window, "the ring wraps")
+    tokens = np.random.default_rng(seed + 2).integers(0, cfg.vocab, (1, RING_PREFILL + 1)).astype(np.int32)
+    with float32_matmuls():
+        model = fresh_model(cfg, device, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill({"tokens": tokens[:, :RING_PREFILL], "max_seq": RING_PREFILL + 1})
+        step, _ = model.decode_step(cache, tokens[:, RING_PREFILL], RING_PREFILL)
+        full, _ = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_logits(step, 1, cfg, "gemma3 decode")
+    err = float((step[:, :cfg.vocab] - full[:, :cfg.vocab]).abs().max())
+    scale = float(full[:, :cfg.vocab].abs().max())
+    log(f"models [{card}]: gemma3-4b at full width, float32, TF32 off ({cfg.n_layers} layers, window {cfg.window}): "
+        f"decode at position {RING_PREFILL} over the wrapped ring vs a prefill over {RING_PREFILL + 1} tokens: "
+        f"max |Δ logit| {err:.3e} (tolerance {RING_TOL:g}; max |logit| {scale:.2f}); {wall:.2f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(err <= RING_TOL, f"gemma3 ring teacher forcing: {err} > {RING_TOL}")
+
+
+def models_encdec(device, seed, card):
+    """whisper-medium (enc_seq 1,500): prefill and greedy decode."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium")
+    rng = np.random.default_rng(seed + 3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (XATTN_BATCH, XATTN_SEQ)).astype(np.int32),
+             "enc_embed": rng.normal(size=(XATTN_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    model = fresh_model(cfg, device, seed)
+    out = serve_timed(model, batch, XATTN_DECODE)
+    check_logits(out["logits"], XATTN_BATCH, cfg, "whisper")
+    log(serve_line(f"whisper-medium at full width ({cfg.n_enc_layers} + {cfg.n_layers} layers, enc_seq "
+                   f"{cfg.enc_seq}, batch {XATTN_BATCH} x {XATTN_SEQ}; {n_params(model) / 1e9:.3f}B parameters)",
+                   out, XATTN_DECODE, card))
+
+
+def models_vision(device, seed, card):
+    """llama-3.2-vision-90b at full width, cut to one group, gates nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import CrossBlock
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=VISION_CUT)
+    rng = np.random.default_rng(seed + 4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (XATTN_BATCH, XATTN_SEQ)).astype(np.int32),
+             "img_embed": rng.normal(size=(XATTN_BATCH, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)}
+    model = fresh_model(cfg, device, seed)
+    gates = [m.gate for m in model.modules() if isinstance(m, CrossBlock)]
+    check(len(gates) == 1, "one cross block")
+    for g in gates:
+        g.fill_(GATE)
+    out = serve_timed(model, batch, XATTN_DECODE)
+    check_logits(out["logits"], XATTN_BATCH, cfg, "vision")
+    log(serve_line(f"llama-3.2-vision-90b at full width cut to {cfg.n_layers} of {full.n_layers} layers (one group: "
+                   f"{cfg.cross_attn_every - 1} self + 1 cross, gate tanh({GATE})), {cfg.n_img_tokens} image tokens, "
+                   f"batch {XATTN_BATCH} x "
+                   f"{XATTN_SEQ}; {n_params(model) / 1e9:.3f}B parameters", out, XATTN_DECODE, card))
+
+
+def models_card_vs_cpu(device, seed, card):
+    """internlm2-1.8b at full width cut to 2 layers, float32: one prefill and
+    one decode step on the card and on the CPU with the same weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2, dtype="float32")
+    tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab, (SYNC_BATCH, SYNC_SEQ)).astype(np.int32)
+    batch = {"tokens": tokens, "max_seq": SYNC_SEQ + 1}
+    with float32_matmuls():
+        on_card = fresh_model(cfg, device, seed)
+        on_cpu = build_model(cfg, "cpu")
+        on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+        got = {}
+        for where, model in (("card", on_card), ("cpu", on_cpu)):
+            first, cache = model.prefill(batch)
+            step, _ = model.decode_step(cache, torch.as_tensor(tokens[:, -1]), SYNC_SEQ)
+            got[where] = (first.cpu(), step.cpu())
+    errs = [float((a[:, :cfg.vocab] - b[:, :cfg.vocab]).abs().max()) for a, b in zip(got["card"], got["cpu"])]
+    for logits in got["card"]:
+        check_logits(logits, SYNC_BATCH, cfg, "card vs CPU")
+    log(f"models [{card}]: card vs CPU, internlm2-1.8b at full width cut to {cfg.n_layers} layers, float32, TF32 "
+        f"off: max |Δ logit| prefill {errs[0]:.3e}, decode {errs[1]:.3e} (tolerance {CARD_CPU_TOL:g})")
+    check(max(errs) <= CARD_CPU_TOL, f"card vs CPU: {errs} > {CARD_CPU_TOL}")
+
+
+def phase_models(tcore, device, seed, card, football_rows, dictionary):
+    """The model plane's serving path at full published widths (module
+    docstring, phase 10); each model freed before the next."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for part in (lambda: models_serving(tcore, device, seed, card, football_rows, dictionary),
+                     lambda: models_param_sync(device, seed, card),
+                     lambda: models_ring(device, seed, card),
+                     lambda: models_encdec(device, seed, card),
+                     lambda: models_vision(device, seed, card),
+                     lambda: models_card_vs_cpu(device, seed, card)):
+            part()
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"models: phase in {time.perf_counter() - t0:.1f} s")
+
+
 def four_ways(bgp, ogp):
     """One interest written four ways: as is, with its variables renamed,
     with its BGP patterns reordered, and both."""
@@ -2410,6 +2716,7 @@ def profile_call(label: str, fn) -> None:
                  "triple_match_lanes kernel" if "triple_match_lanes" in k else
                  "triple_match kernel" if "triple_match" in k else
                  "merge_probe kernel" if "merge_probe" in k else
+                 "gemm" if "gemm" in k or "xmma" in k or "cutlass" in k or "nvjet" in k else
                  "sort" if "sort" in k or "radix" in k else
                  "index/scatter/gather" if "index" in k or "scatter" in k or "gather" in k else
                  "copy/fill" if "memcpy" in k or "memset" in k or "fill" in k or "copy" in k else
@@ -2476,6 +2783,7 @@ def main(argv=None) -> int:
     phase_kernels(device)
     phase_small(tcore, device, args.seed)
     subs, stream, changesets, launches = phase_full(tcore, device, args.seed, args.changesets)
+    football_rows, football_dictionary = tcore.to_numpy(subs["football"].tau), stream.d
     broker, broker_stream, rec, broker_launches = phase_broker(tcore, device, args.seed)
     phase_fanout(tcore, device, args.seed, broker_stream, broker.stats)
     table = phase_timing(tcore, device, subs, changesets, launches)
@@ -2494,6 +2802,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_sharded(tcore, device, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_models(tcore, device, args.seed, card, football_rows, football_dictionary)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not mods, f"the port loaded JAX or the JAX package: {mods}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,11 @@ bitset, the lexicographic probe, the bank words, the fused lane routing,
 the segmented bank words and the lane refinement (``repro_torch.kernels``).
 A ``DeviceMesh`` of devices of this one process carries the broker's cohort
 placement and sharded cohort step (``repro_torch.core.distributed``).
+The model plane serves the reference's attention families
+(``repro_torch.models``, ``repro_torch.configs``; weights carried from the
+reference by ``repro_torch.models.convert``), with interest-filtered
+parameter sync (``repro_torch.core.param_sync``), replica-fed token batches
+(``repro_torch.data``) and a serving driver (``repro_torch.launch.serve``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import checkpoint, core, kernels, testing

@@ -1,0 +1,31 @@
+"""yi-34b [dense]: 60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000.
+
+llama-arch GQA. [arXiv:2403.04652; hf]
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=20480,
+    vocab=64000,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-smoke",
+        family="dense",
+        n_layers=2,
+        d_model=32,
+        n_heads=4,
+        n_kv_heads=2,
+        d_head=8,
+        d_ff=64,
+        vocab=97,
+    )

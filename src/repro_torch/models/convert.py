@@ -1,0 +1,100 @@
+"""Carry weights between the reference's parameter pytree and the port's modules.
+
+The reference (``repro.models.model``) keeps each family's layers stacked on
+leading axes (``blocks`` (L, ...); ``local_groups`` (G, per-1, ...),
+``global_blocks`` (G, ...) and ``tail`` (T, ...) for local/global;
+``enc_blocks``/``dec_blocks``; ``self_groups`` (G, per-1, ...) and
+``cross_blocks`` (G, ...) for vlm). The port keeps one module per layer in
+layer order. A leaf at path ``(stack, *keys)`` and leading index ``idx`` is
+the port's parameter ``<prefix of stack and idx>.<keys joined by dots>``;
+an unstacked leaf's name is its path joined by dots. numpy and torch only.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+
+
+def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Callable[..., str]]]:
+    """The reference's stacked top-level keys: their leading shape, and the
+    port's module prefix of each leading index."""
+    if cfg.family in ("dense", "moe"):
+        if cfg.attn_pattern != "local_global":
+            return {"blocks": ((cfg.n_layers,), lambda j: f"layers.{j}")}
+        per = cfg.global_every
+        ng = cfg.n_layers // per
+        nt = cfg.n_layers - ng * per
+        out = {
+            "local_groups": ((ng, per - 1), lambda g, i: f"layers.{g * per + i}"),
+            "global_blocks": ((ng,), lambda g: f"layers.{g * per + per - 1}"),
+        }
+        if nt:
+            out["tail"] = ((nt,), lambda t: f"layers.{ng * per + t}")
+        return out
+    if cfg.family == "encdec":
+        return {"enc_blocks": ((cfg.n_enc_layers,), lambda i: f"enc_blocks.{i}"),
+                "dec_blocks": ((cfg.n_layers,), lambda i: f"dec_blocks.{i}")}
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        ng = cfg.n_layers // per
+        return {"self_groups": ((ng, per - 1), lambda g, i: f"layers.{g * per + i}"),
+                "cross_blocks": ((ng,), lambda g: f"layers.{g * per + per - 1}")}
+    raise NotImplementedError(f"no port of the {cfg.family} family yet (ROADMAP A14b)")
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def iter_port_leaves(cfg: ModelConfig, tree) -> Iterator[Tuple[str, np.ndarray]]:
+    """(port parameter name, the reference leaf's slice for it) for every
+    leaf of ``tree``, a nested dict of arrays; the slices are views."""
+    stacks = _stacks(cfg)
+    for path, arr in _leaves(tree):
+        if path[0] not in stacks:
+            yield ".".join(path), arr
+            continue
+        lead, prefix = stacks[path[0]]
+        rest = ".".join(path[1:])
+        for idx in np.ndindex(*lead):
+            yield f"{prefix(*idx)}.{rest}", arr[idx]
+
+
+def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
+    """The reference's ``init`` pytree, as numpy arrays, as the port's state dict."""
+    return {name: torch.from_numpy(np.array(arr, copy=True))
+            for name, arr in iter_port_leaves(cfg, tree)}
+
+
+def params_to_jax(cfg: ModelConfig, model) -> dict:
+    """The inverse of ``params_from_jax``: the model's parameters as the
+    reference's pytree of (stacked) numpy arrays."""
+    owner = {}
+    for stack, (lead, prefix) in _stacks(cfg).items():
+        for idx in np.ndindex(*lead):
+            owner[prefix(*idx)] = (stack, lead, idx)
+    tree: dict = {}
+    for name, t in model.state_dict().items():
+        arr = t.detach().cpu().numpy()
+        parts = name.split(".")
+        at = owner.get(".".join(parts[:2]))
+        if at is None:
+            keys, lead, idx = parts, (), ()
+        else:
+            stack, lead, idx = at
+            keys = [stack] + parts[2:]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if keys[-1] not in node:
+            node[keys[-1]] = np.empty(lead + arr.shape, arr.dtype)
+        node[keys[-1]][idx] = arr
+    return tree

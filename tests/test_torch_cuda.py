@@ -737,3 +737,123 @@ def test_block_sliced_views_equal_plain(card, n_shards, cap):
                                   ref.pattern_lane_bits_ref(i_cpu, c["bank"], c["lanes"], c["active"]).numpy())
     np.testing.assert_array_equal(_stitch(torch.stack(seg_out), cap, blk, starts, dim=1).cpu().numpy(),
                                   ref.pattern_bitmask_words_segmented_ref(c["spo"][0], c["bank"], c["seg"], 2).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the model plane on the card (chip_smoke.py's phase 10 at smoke size)
+# ---------------------------------------------------------------------------
+
+MODEL_ARCHS = ["internlm2-1.8b", "nemotron-4-15b", "gemma3-4b", "granite-moe-3b-a800m", "kimi-k2-1t-a32b",
+               "whisper-medium", "llama-3.2-vision-90b"]
+
+
+@pytest.fixture()
+def float32_matmuls():
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def smoke_model(arch, device, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **changes)
+    return build_model(cfg, device).init(torch.Generator(device).manual_seed(0))
+
+
+def smoke_batch(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["enc_embed"] = rng.normal(size=(b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["img_embed"] = rng.normal(size=(b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_on_the_card_equals_the_cpu(card, float32_matmuls, arch):
+    """float32, TF32 off: one prefill and two decode steps with the same
+    weights on the card and on the CPU agree within 1e-4."""
+    on_card = smoke_model(arch, card, dtype="float32")
+    from repro_torch.models import build_model
+
+    on_cpu = build_model(on_card.cfg, "cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    batch = dict(smoke_batch(on_card.cfg, 2, 8), max_seq=10)
+    if on_card.cfg.family == "vlm":
+        for name, p in on_card.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(0.5)
+                on_cpu.get_parameter(name).fill_(0.5)
+    got = {}
+    for where, model in (("card", on_card), ("cpu", on_cpu)):
+        logits, cache = model.prefill(batch)
+        out = [logits.cpu()]
+        for i in range(2):
+            logits, cache = model.decode_step(cache, torch.as_tensor(batch["tokens"][:, i]), 8 + i)
+            out.append(logits.cpu())
+        got[where] = out
+    for a, b in zip(got["card"], got["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_ring_teacher_forcing_on_the_card(card, float32_matmuls):
+    """gemma3's smoke config (window 8): a decode step at position 20 after
+    a 20-token prefill, over a wrapped ring, equals a 21-token prefill."""
+    model = smoke_model("gemma3-4b", card, dtype="float32")
+    tokens = np.random.default_rng(1).integers(0, model.cfg.vocab, (2, 21)).astype(np.int32)
+    _, cache = model.prefill({"tokens": tokens[:, :20], "max_seq": 21})
+    step, _ = model.decode_step(cache, tokens[:, 20], 20)
+    full, _ = model.prefill({"tokens": tokens})
+    np.testing.assert_allclose(step.cpu().numpy(), full.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_mirror_replica_on_the_card_is_bit_identical(card):
+    """granite's smoke config: expert banks perturbed and published; the
+    mirror's banks and logits equal the source's bit for bit, and the even
+    experts' replica holds the source's even rows and its old odd ones."""
+    from repro_torch.core import param_sync as ps
+
+    model = smoke_model("granite-moe-3b-a800m", card)
+    banks = {f"layers.{j}.mlp.{w}": getattr(layer.mlp, w) for j, layer in enumerate(model.layers)
+             for w in ("wg", "wi", "wo")}
+    even = torch.arange(0, model.cfg.n_experts, 2, device=card)
+    mirror = ps.ParamReplica({n: b.clone() for n, b in banks.items()}, {n: None for n in banks})
+    half = ps.ParamReplica({n: b.clone() for n, b in banks.items()}, {n: even for n in banks})
+    old = {n: b.clone() for n, b in banks.items()}
+    rows = torch.tensor([1, 2], device=card)
+    for name, bank in banks.items():
+        new = bank.clone()
+        new[rows] += 1.0
+        cs = ps.diff_bank(name, bank, new)
+        assert cs.rows.tolist() == [1, 2]
+        bank.copy_(new)
+        mirror.receive(cs)
+        half.receive(cs)
+    batch = dict(smoke_batch(model.cfg, 2, 8), max_seq=9)
+    src = model.prefill(batch)[0]
+    for name, bank in banks.items():
+        assert torch.equal(mirror.banks[name], bank)
+        assert torch.equal(half.banks[name][0::2], bank[0::2])
+        assert torch.equal(half.banks[name][1::2], old[name][1::2])
+        bank.data = mirror.banks[name]
+    assert torch.equal(model.prefill(batch)[0], src)
+    assert 0.4 < half.savings < 0.6
+
+
+def test_serve_main_on_the_card_equals_the_ports_loop(card):
+    from repro_torch.launch import serve
+
+    got = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cuda", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "5"])
+    model = smoke_model("internlm2-1.8b", card)
+    out = serve.greedy(model, smoke_batch(model.cfg, 2, 8), 5)
+    np.testing.assert_array_equal(got, out["tokens"])
+    assert out["prefill_ms"] > 0 and out["decode_ms"] > 0
