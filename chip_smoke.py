@@ -106,8 +106,16 @@ Phases, each fatal on failure:
    (enc_seq 1,500) and llama-3.2-vision-90b cut to one group (5 of 100
    layers, gates nonzero), prefill and 8 decode steps; internlm2-1.8b cut to
    2 layers, float32, one prefill and one decode step on the card and on
-   the CPU with the same weights. Prefill and decode milliseconds, peak
-   device memory, bytes offered and received, stamped with the card.
+   the CPU with the same weights. Then the state-space families:
+   falcon-mamba-7b (64 Mamba-1 layers) and zamba2-7b (81 Mamba-2 layers,
+   one shared attention block after each group of 6) at full width, each
+   served 4 x 32 through ``launch/serve`` with 16 decode steps, then in
+   float32 with TF32 off a 1,024-token prefill (2 Mamba-1 chunks of 512,
+   or 4 SSD chunks of 256) against a 1,023-token prefill (one chunk) and a
+   decode step; falcon-mamba cut to 2 layers and zamba2 to 7 (one group,
+   its shared block, one tail layer) on the card and on the CPU. Prefill
+   and decode milliseconds, peak device memory, bytes offered and
+   received, stamped with the card.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
@@ -1995,21 +2003,34 @@ SYNC_BATCH, SYNC_SEQ, SYNC_SHARE = 2, 16, 0.25  # (layer, expert) rows perturbed
 RING_PREFILL = 1100  # > gemma3's window of 1,024: the ring has wrapped
 RING_TOL = 1e-4  # float32, TF32 off: prefill(1,101) vs prefill(1,100) + a decode step
 CARD_CPU_TOL = 1e-4  # float32, TF32 off: the card's logits vs the CPU's, same weights
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")  # the state-space families, at full width
+SSM_FORCED = 1024  # falcon-mamba: 2 Mamba-1 chunks of 512; zamba2: 4 SSD chunks of 256
+# float32, TF32 off: prefill(1,024) (chunked) vs prefill(1,023) (one chunk: 1,023 is no multiple of
+# either chunk) + a decode step. The sides sum the same float32 terms in different orders in each of
+# 64 or 81 layers; in float64 they agree to 1e-13 (a float64 copy of the port at smoke width,
+# experiments/torch_ssm_gaps.py), so the gap is float32 rounding. falcon-mamba's Hillis-Steele scan multiplies decays: ten times RING_TOL.
+# zamba2's SSD forms its decays as exp(cs_i - cs_j) from cumulative sums of dt·A that reach ~-800
+# over the 1,023-token chunk, where a float32 step is 6e-5: the one-chunk side's decays carry that
+# error, in the reference as in the port (2.1e-5 and 1.9e-5 at smoke width, 1,024 tokens, CPU);
+# measured 3.6e-3 at full width (H100), held to about three times that
+SSM_FORCED_TOL = {"falcon-mamba-7b": 1e-3, "zamba2-7b": 1e-2}
 VISION_CUT = 5  # layers of llama-3.2-vision-90b kept: one group, 4 self + 1 cross
 GATE = 0.5  # the vision model's cross gates, zero at init
 
 
 @contextlib.contextmanager
 def float32_matmuls():
-    """Full float32 products on the card (no TF32), restored after."""
+    """Full float32 products and convolutions on the card (no TF32), restored after."""
     import torch
 
-    old = torch.get_float32_matmul_precision()
+    old, old_conv = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(old)
+        torch.backends.cudnn.allow_tf32 = old_conv
 
 
 def fresh_model(cfg, device, seed):
@@ -2227,14 +2248,15 @@ def models_vision(device, seed, card):
                    f"{XATTN_SEQ}; {n_params(model) / 1e9:.3f}B parameters", out, XATTN_DECODE, card))
 
 
-def models_card_vs_cpu(device, seed, card):
-    """internlm2-1.8b at full width cut to 2 layers, float32: one prefill and
-    one decode step on the card and on the CPU with the same weights."""
+def models_card_vs_cpu(device, seed, card, arch="internlm2-1.8b", n_layers=2):
+    """``arch`` at full width cut to ``n_layers`` layers, float32: one
+    prefill and one decode step on the card and on the CPU with the same
+    weights."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab, (SYNC_BATCH, SYNC_SEQ)).astype(np.int32)
     batch = {"tokens": tokens, "max_seq": SYNC_SEQ + 1}
     with float32_matmuls():
@@ -2248,16 +2270,64 @@ def models_card_vs_cpu(device, seed, card):
             got[where] = (first.cpu(), step.cpu())
     errs = [float((a[:, :cfg.vocab] - b[:, :cfg.vocab]).abs().max()) for a, b in zip(got["card"], got["cpu"])]
     for logits in got["card"]:
-        check_logits(logits, SYNC_BATCH, cfg, "card vs CPU")
-    log(f"models [{card}]: card vs CPU, internlm2-1.8b at full width cut to {cfg.n_layers} layers, float32, TF32 "
+        check_logits(logits, SYNC_BATCH, cfg, f"{arch} card vs CPU")
+    log(f"models [{card}]: card vs CPU, {arch} at full width cut to {cfg.n_layers} layers, float32, TF32 "
         f"off: max |Δ logit| prefill {errs[0]:.3e}, decode {errs[1]:.3e} (tolerance {CARD_CPU_TOL:g})")
-    check(max(errs) <= CARD_CPU_TOL, f"card vs CPU: {errs} > {CARD_CPU_TOL}")
+    check(max(errs) <= CARD_CPU_TOL, f"{arch} card vs CPU: {errs} > {CARD_CPU_TOL}")
+
+
+def models_state_space(device, seed, card, arch):
+    """falcon-mamba-7b (Mamba-1) or zamba2-7b (Mamba-2 with its shared
+    attention block) at full width: served through ``launch/serve`` at
+    the phase's batch, then, in float32 with TF32 off, a 1,024-token
+    prefill (several chunks) against a 1,023-token prefill (one chunk) and
+    a decode step."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    tokens = np.random.default_rng(seed + 6).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_SEQ)).astype(np.int32)
+    model = fresh_model(cfg, device, seed)
+    out = serve_timed(model, {"tokens": tokens}, SERVE_DECODE)
+    check(out["tokens"].shape == (SERVE_BATCH, SERVE_DECODE + 1), f"{arch}: a greedy token per step and sequence")
+    check_logits(out["logits"], SERVE_BATCH, cfg, f"{arch} serving")
+    shape = (f"{cfg.n_layers // cfg.shared_attn_every} groups of {cfg.shared_attn_every} Mamba-2 layers and one "
+             f"shared attention block, a tail of {cfg.n_layers % cfg.shared_attn_every}"
+             if cfg.family == "hybrid" else f"{cfg.n_layers} Mamba-1 layers")
+    log(serve_line(f"{arch} at full width ({shape}; d_model {cfg.d_model}, d_inner {cfg.d_inner}, d_state "
+                   f"{cfg.d_state}; {n_params(model) / 1e9:.3f}B float32 parameters, bfloat16 compute; batch "
+                   f"{SERVE_BATCH} x {SERVE_SEQ})", out, SERVE_DECODE, card))
+    del model, out
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    chunk = cfg.scan_chunk if cfg.ssm_kind == "mamba1" else cfg.ssm_chunk
+    check(SSM_FORCED % chunk == 0 and SSM_FORCED // chunk > 1 and (SSM_FORCED - 1) % chunk,
+          f"{arch}: {SSM_FORCED} tokens are several chunks of {chunk}, {SSM_FORCED - 1} one")
+    tokens = np.random.default_rng(seed + 7).integers(0, cfg.vocab, (1, SSM_FORCED)).astype(np.int32)
+    with float32_matmuls():
+        model = fresh_model(cfg, device, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill({"tokens": tokens[:, :-1], "max_seq": SSM_FORCED})
+        step, _ = model.decode_step(cache, tokens[:, -1], SSM_FORCED - 1)
+        del cache
+        full, _ = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_logits(step, 1, cfg, f"{arch} teacher forcing")
+    err = float((step[:, :cfg.vocab] - full[:, :cfg.vocab]).abs().max())
+    scale = float(full[:, :cfg.vocab].abs().max())
+    log(f"models [{card}]: {arch} at full width, float32, TF32 off: prefill {SSM_FORCED - 1} (one chunk) + a "
+        f"decode step vs a prefill over {SSM_FORCED} tokens ({SSM_FORCED // chunk} chunks of {chunk}): max "
+        f"|Δ logit| {err:.3e} (tolerance {SSM_FORCED_TOL[arch]:g}; max |logit| {scale:.2f}); {wall:.2f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(err <= SSM_FORCED_TOL[arch], f"{arch} teacher forcing: {err} > {SSM_FORCED_TOL[arch]}")
 
 
 def phase_models(tcore, device, seed, card, football_rows, dictionary):
     """The model plane's serving path at full published widths (module
     docstring, phase 10); each model freed before the next."""
     import torch
+    from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2270,7 +2340,18 @@ def phase_models(tcore, device, seed, card, football_rows, dictionary):
             part()
             gc.collect()
             torch.cuda.empty_cache()
-    log(f"models: phase in {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        for arch in SSM_ARCHS:
+            models_state_space(device, seed, card, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        # falcon-mamba cut to 2 layers; zamba2 to one group, its shared block and one tail layer
+        for arch, n_layers in (("falcon-mamba-7b", 2), ("zamba2-7b", get_config("zamba2-7b").shared_attn_every + 1)):
+            models_card_vs_cpu(device, seed, card, arch, n_layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"models: phase in {time.perf_counter() - t0:.1f} s, the state-space families {time.perf_counter() - t1:.1f} s "
+        "of it")
 
 
 def four_ways(bgp, ogp):

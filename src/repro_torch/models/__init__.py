@@ -1,7 +1,9 @@
-"""Model substrate on PyTorch: configs, layers, the attention families'
-assemblies (``Model`` takes the place of the reference's ``ModelApi``)."""
+"""Model substrate on PyTorch: configs, layers, the state-space blocks
+(``ssm``) and every family's assembly (``Model`` takes the place of the
+reference's ``ModelApi``)."""
+from . import ssm
 from .config import LONG_CTX_ARCHS, SHAPES, ModelConfig, ShapeCell, cells_for, torch_dtype
-from .model import Model, build_model
+from .model import Hybrid, Model, Ssm, build_model
 
 __all__ = [
     "LONG_CTX_ARCHS",
@@ -11,5 +13,8 @@ __all__ = [
     "cells_for",
     "torch_dtype",
     "Model",
+    "Ssm",
+    "Hybrid",
+    "ssm",
     "build_model",
 ]

@@ -4,7 +4,9 @@ The reference (``repro.models.model``) keeps each family's layers stacked on
 leading axes (``blocks`` (L, ...); ``local_groups`` (G, per-1, ...),
 ``global_blocks`` (G, ...) and ``tail`` (T, ...) for local/global;
 ``enc_blocks``/``dec_blocks``; ``self_groups`` (G, per-1, ...) and
-``cross_blocks`` (G, ...) for vlm). The port keeps one module per layer in
+``cross_blocks`` (G, ...) for vlm; ``blocks`` for ssm; ``groups`` (G, per,
+...) and ``tail`` (T, ...) for hybrid, whose one ``shared_attn`` block is
+unstacked). The port keeps one module per layer in
 layer order. A leaf at path ``(stack, *keys)`` and leading index ``idx`` is
 the port's parameter ``<prefix of stack and idx>.<keys joined by dots>``;
 an unstacked leaf's name is its path joined by dots. numpy and torch only.
@@ -43,7 +45,17 @@ def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Callable[..., 
         ng = cfg.n_layers // per
         return {"self_groups": ((ng, per - 1), lambda g, i: f"layers.{g * per + i}"),
                 "cross_blocks": ((ng,), lambda g: f"layers.{g * per + per - 1}")}
-    raise NotImplementedError(f"no port of the {cfg.family} family yet (ROADMAP A14b)")
+    if cfg.family == "ssm":
+        return {"blocks": ((cfg.n_layers,), lambda j: f"layers.{j}")}
+    if cfg.family == "hybrid":
+        per = cfg.shared_attn_every
+        ng = cfg.n_layers // per
+        nt = cfg.n_layers - ng * per
+        out = {"groups": ((ng, per), lambda g, i: f"layers.{g * per + i}")}
+        if nt:
+            out["tail"] = ((nt,), lambda t: f"layers.{ng * per + t}")
+        return out
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def _leaves(tree, path=()):

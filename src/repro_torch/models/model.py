@@ -17,9 +17,13 @@ reference's stacked layout (``k``: (n_layers, B, max_seq, N_kv, Dh);
 vlm), so they compare leaf for leaf. ``decode_step`` returns new cache
 tensors and leaves the ones it was given as they were.
 
-Ported: the dense, MoE and local/global decoders (``build_decoder``),
-``build_encdec`` and ``build_vlm``. The state-space families (``build_ssm``,
-``build_hybrid``) wait for ROADMAP A14b, and ``build_model`` refuses them.
+Every family is ported: the dense, MoE and local/global decoders
+(``build_decoder``), the state-space families (``build_ssm``: falcon-mamba's
+Mamba-1 or a Mamba-2 stack; ``build_hybrid``: zamba2's Mamba-2 groups with
+one shared attention block), ``build_encdec`` and ``build_vlm``. The
+state-space caches keep the reference's nested layout (``states``;
+``g_states``, ``shared_k``/``shared_v`` and ``t_states``), each a dict of
+``conv`` and ``ssm`` leaves stacked on the layer axes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig, torch_dtype
 
 
@@ -256,6 +261,215 @@ class Decoder(Model):
 
 def build_decoder(cfg: ModelConfig, device=None) -> Decoder:
     return Decoder(cfg, device)
+
+
+# ===========================================================================
+# ssm (falcon-mamba) and hybrid (zamba2)
+# ===========================================================================
+
+# the mixer module, its full-sequence forward, its decode step and its state
+_MIXERS = {
+    "mamba1": (S.Mamba1, S.mamba1_forward, S.mamba1_step, S.mamba1_init_state),
+    "mamba2": (S.Mamba2, S.mamba2_forward, S.mamba2_step, S.mamba2_init_state),
+}
+
+
+class SsmBlock(nn.Module):
+    """A state-space block: ``ln`` and ``mixer`` (a ``Mamba1`` or a ``Mamba2``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, kind: str = "mamba2"):
+        super().__init__()
+        self.kind = kind
+        self.ln = L.Norm(cfg, device)
+        self.mixer = _MIXERS[kind][0](cfg, device)
+
+
+def _ssm_block_fwd(bp: SsmBlock, x, cfg: ModelConfig, return_state: bool = False):
+    """-> x, or (x, the decode state after the last position)."""
+    h = L.apply_norm(bp.ln, x, cfg)
+    if return_state:
+        y, st = _MIXERS[bp.kind][1](bp.mixer, h, cfg, return_state=True)
+        return x + y, st
+    return x + _MIXERS[bp.kind][1](bp.mixer, h, cfg)
+
+
+def _ssm_block_step(bp: SsmBlock, x, st, cfg: ModelConfig):
+    h = L.apply_norm(bp.ln, x, cfg)
+    y, st = _MIXERS[bp.kind][2](bp.mixer, h, st, cfg)
+    return x + y, st
+
+
+def _stack_states(states):
+    """A list of state dicts -> one dict of leaves stacked on a new first axis."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _zero_states(st, lead):
+    return {k: torch.zeros(lead + tuple(t.shape), dtype=t.dtype, device=t.device) for k, t in st.items()}
+
+
+class Ssm(Model):
+    """``build_ssm`` (falcon-mamba): ``layers`` of ``SsmBlock``s of
+    ``cfg.ssm_kind``. The cache is ``{"states": {"conv": (L, B, K-1, C),
+    "ssm": (L, B, ...)}}``; ``decode_step`` reads no position."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.layers = nn.ModuleList(SsmBlock(cfg, device, cfg.ssm_kind) for _ in range(cfg.n_layers))
+
+    def train_loss(self, batch):
+        cfg = self.cfg
+        x = embed(self, self._tokens(batch["tokens"]), cfg)
+        for bp in self.layers:
+            x = _ssm_block_fwd(bp, x, cfg)
+        logits = unembed(self, x, cfg)
+        loss = xent_loss(logits, self._input(batch["labels"]))
+        return loss, {"xent": loss}
+
+    def init_cache(self, batch_size: int, max_seq: int):
+        st = _MIXERS[self.cfg.ssm_kind][3](self.cfg, batch_size, self.device)
+        return {"states": _zero_states(st, (self.cfg.n_layers,))}
+
+    def prefill(self, batch):
+        cfg = self.cfg
+        x = embed(self, self._tokens(batch["tokens"]), cfg)
+        states = []
+        for bp in self.layers:
+            x, st = _ssm_block_fwd(bp, x, cfg, return_state=True)
+            states.append(st)
+        logits = unembed(self, x[:, -1:, :], cfg)
+        return logits[:, 0], {"states": _stack_states(states)}
+
+    def decode_step(self, cache, tokens, pos):
+        cfg = self.cfg
+        x = embed(self, self._tokens(tokens)[:, None], cfg)[:, 0]
+        states = []
+        for j, bp in enumerate(self.layers):
+            x, st = _ssm_block_step(bp, x, {k: v[j] for k, v in cache["states"].items()}, cfg)
+            states.append(st)
+        return unembed(self, x, cfg), {"states": _stack_states(states)}
+
+
+def build_ssm(cfg: ModelConfig, device=None) -> Ssm:
+    return Ssm(cfg, device)
+
+
+class SharedAttn(nn.Module):
+    """``shared_attn``: ``ln`` and ``attn``, one set of weights."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = L.Norm(cfg, device)
+        self.attn = L.Attention(cfg, device)
+
+
+class Hybrid(Model):
+    """``build_hybrid`` (zamba2): a Mamba-2 backbone and one shared attention
+    block. ``layers`` are ``n_layers // shared_attn_every`` groups of
+    ``shared_attn_every`` Mamba-2 blocks, ``shared_attn`` applied after each
+    group, then the ``n_layers % shared_attn_every`` tail blocks. The cache
+    holds ``g_states`` (G, per, B, ...), the shared block's keys and values
+    of every group ``shared_k``/``shared_v`` (G, B, max_seq, N_kv, Dh) and
+    ``t_states`` (T, B, ...) when there is a tail."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.per = cfg.shared_attn_every
+        self.n_groups = cfg.n_layers // self.per
+        self.n_tail = cfg.n_layers - self.n_groups * self.per
+        self.layers = nn.ModuleList(SsmBlock(cfg, device, "mamba2") for _ in range(cfg.n_layers))
+        self.shared_attn = SharedAttn(cfg, device)
+
+    def _group(self, g: int):
+        return self.layers[g * self.per:(g + 1) * self.per]
+
+    def _tail(self):
+        return self.layers[self.n_groups * self.per:]
+
+    def train_loss(self, batch):
+        cfg = self.cfg
+        sp = self.shared_attn
+        x = embed(self, self._tokens(batch["tokens"]), cfg)
+        for g in range(self.n_groups):
+            for bp in self._group(g):
+                x = _ssm_block_fwd(bp, x, cfg)
+            x = x + L.attention(sp.attn, L.apply_norm(sp.ln, x, cfg), cfg)
+        for bp in self._tail():
+            x = _ssm_block_fwd(bp, x, cfg)
+        logits = unembed(self, x, cfg)
+        loss = xent_loss(logits, self._input(batch["labels"]))
+        return loss, {"xent": loss}
+
+    def init_cache(self, batch_size: int, max_seq: int):
+        st = S.mamba2_init_state(self.cfg, batch_size, self.device)
+        ng = self.n_groups
+        cache = {"g_states": _zero_states(st, (ng, self.per)),
+                 "shared_k": self._kv(ng, batch_size, max_seq),
+                 "shared_v": self._kv(ng, batch_size, max_seq)}
+        if self.n_tail:
+            cache["t_states"] = _zero_states(st, (self.n_tail,))
+        return cache
+
+    def prefill(self, batch):
+        """The shared block's keys are roped at ``arange(s)``, its values are
+        not; both are zero-padded to ``max_seq``."""
+        cfg = self.cfg
+        sp = self.shared_attn
+        tokens = self._tokens(batch["tokens"])
+        bsz, s = tokens.shape
+        max_seq = batch.get("max_seq", s)
+        cache = {"shared_k": self._kv(self.n_groups, bsz, max_seq),
+                 "shared_v": self._kv(self.n_groups, bsz, max_seq)}
+        x = embed(self, tokens, cfg)
+        g_states = []
+        for g in range(self.n_groups):
+            states = []
+            for bp in self._group(g):
+                x, st = _ssm_block_fwd(bp, x, cfg, return_state=True)
+                states.append(st)
+            g_states.append(_stack_states(states))
+            y, k, v = L._attend(sp.attn, L.apply_norm(sp.ln, x, cfg), cfg)
+            cache["shared_k"][g, :, :s] = k
+            cache["shared_v"][g, :, :s] = v
+            x = x + y
+        cache["g_states"] = _stack_states(g_states)
+        if self.n_tail:
+            states = []
+            for bp in self._tail():
+                x, st = _ssm_block_fwd(bp, x, cfg, return_state=True)
+                states.append(st)
+            cache["t_states"] = _stack_states(states)
+        logits = unembed(self, x[:, -1:, :], cfg)
+        return logits[:, 0], cache
+
+    def decode_step(self, cache, tokens, pos):
+        cfg = self.cfg
+        sp = self.shared_attn
+        pos = int(pos)
+        x = embed(self, self._tokens(tokens)[:, None], cfg)[:, 0]
+        sk, sv = cache["shared_k"].clone(), cache["shared_v"].clone()
+        g_states = []
+        for g in range(self.n_groups):
+            states = []
+            for i, bp in enumerate(self._group(g)):
+                x, st = _ssm_block_step(bp, x, {k: v[g, i] for k, v in cache["g_states"].items()}, cfg)
+                states.append(st)
+            g_states.append(_stack_states(states))
+            h = L.apply_norm(sp.ln, x[:, None, :], cfg)
+            y, _, _ = L.attention_decode(sp.attn, h, cfg, sk[g], sv[g], pos)
+            x = x + y[:, 0]
+        new_cache = {"g_states": _stack_states(g_states), "shared_k": sk, "shared_v": sv}
+        if self.n_tail:
+            states = []
+            for t, bp in enumerate(self._tail()):
+                x, st = _ssm_block_step(bp, x, {k: v[t] for k, v in cache["t_states"].items()}, cfg)
+                states.append(st)
+            new_cache["t_states"] = _stack_states(states)
+        return unembed(self, x, cfg), new_cache
+
+
+def build_hybrid(cfg: ModelConfig, device=None) -> Hybrid:
+    return Hybrid(cfg, device)
 
 
 # ===========================================================================
@@ -492,10 +706,10 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     device = torch.device("cuda" if device is None else device)
     if cfg.family in ("dense", "moe"):
         return build_decoder(cfg, device)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            "models/ssm.py, build_ssm and build_hybrid are ROADMAP A14b")
+    if cfg.family == "ssm":
+        return build_ssm(cfg, device)
+    if cfg.family == "hybrid":
+        return build_hybrid(cfg, device)
     if cfg.family == "encdec":
         return build_encdec(cfg, device)
     if cfg.family == "vlm":

@@ -744,17 +744,20 @@ def test_block_sliced_views_equal_plain(card, n_shards, cap):
 # ---------------------------------------------------------------------------
 
 MODEL_ARCHS = ["internlm2-1.8b", "nemotron-4-15b", "gemma3-4b", "granite-moe-3b-a800m", "kimi-k2-1t-a32b",
-               "whisper-medium", "llama-3.2-vision-90b"]
+               "whisper-medium", "llama-3.2-vision-90b", "falcon-mamba-7b", "zamba2-7b"]
 
 
 @pytest.fixture()
 def float32_matmuls():
-    old = torch.get_float32_matmul_precision()
+    """Full float32 products and convolutions (no TF32), restored after."""
+    old, old_conv = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(old)
+        torch.backends.cudnn.allow_tf32 = old_conv
 
 
 def smoke_model(arch, device, **changes):

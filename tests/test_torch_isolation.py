@@ -18,7 +18,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys, repro_torch, repro_torch.core, repro_torch.core.broker, repro_torch.kernels, repro_torch.data\n"
         "import repro_torch.core.journal, repro_torch.core.delivery, repro_torch.checkpoint, repro_torch.testing\n"
         "import repro_torch.core.distributed\n"
-        "import repro_torch.models, repro_torch.models.convert, repro_torch.configs, repro_torch.core.param_sync\n"
+        "import repro_torch.models, repro_torch.models.convert, repro_torch.models.ssm, repro_torch.configs\n"
+        "import repro_torch.core.param_sync\n"
         "import repro_torch.data.pipeline, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

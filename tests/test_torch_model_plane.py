@@ -1,9 +1,10 @@
 """The port's model plane around the models, against the reference, on the CPU.
 
-* Every full attention-family configuration builds on the meta device, and
-  its parameter names and shapes map one to one onto the leaves of the
+* Every full configuration of the ten builds on the meta device, and its
+  parameter names and shapes map one to one onto the leaves of the
   reference's ``jax.eval_shape(api.init)`` (no memory either side).
-* ``build_model`` refuses the state-space families, which wait.
+* ``build_model`` builds the state-space families' smoke configs on the CPU
+  and on the meta device.
 * ``core/param_sync``: the reference's four ``tests/test_param_sync.py``
   scenarios on both packages, with equal rows, values, byte counts and
   savings.
@@ -11,7 +12,8 @@
   ``IrapEngine`` and the reference's on a small ``DBpediaLikeGenerator``
   stream gives the same tokens and the same batches.
 * ``launch/serve``: ``main`` on the CPU equals the port's own prefill and
-  greedy decode loop.
+  greedy decode loop, for a dense, an encoder-decoder and both state-space
+  families.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def test_the_registry_is_a_copy_of_the_reference():
             assert vars(get(arch)) == vars(ref_get(arch)), arch
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
 def test_full_config_builds_on_meta_and_maps_onto_reference_leaves(arch):
     cfg = configs.get_config(arch)
     model = build_model(cfg, device="meta")
@@ -65,9 +67,20 @@ def test_full_config_builds_on_meta_and_maps_onto_reference_leaves(arch):
 
 
 @pytest.mark.parametrize("arch", STATE_SPACE_ARCHS)
-def test_build_model_refuses_the_state_space_families(arch):
-    with pytest.raises(NotImplementedError, match="A14b"):
-        build_model(configs.get_smoke_config(arch), device="cpu")
+def test_build_model_builds_the_state_space_families(arch):
+    from repro_torch.models import Hybrid, Ssm
+
+    cfg = configs.get_smoke_config(arch)
+    want = Ssm if cfg.family == "ssm" else Hybrid
+    on_meta = build_model(cfg, device="meta")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert type(on_meta) is type(model) is want
+    assert all(t.is_meta for t in on_meta.state_dict().values())
+    assert {n: t.shape for n, t in on_meta.state_dict().items()} == {n: t.shape for n, t in model.state_dict().items()}
+    assert not any(p.requires_grad for p in model.parameters())
+    logits, cache = model.prefill({"tokens": np.zeros((1, 4), np.int32), "max_seq": 6})
+    assert tuple(logits.shape) == (1, cfg.padded_vocab) and bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+    assert sorted(cache) == sorted(model.init_cache(1, 6))
 
 
 def test_build_model_targets_the_card_by_default():
@@ -247,7 +260,7 @@ def test_replica_tokens_and_batches_equal_reference():
 # serving
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-medium", "falcon-mamba-7b", "zamba2-7b"])
 def test_serve_main_equals_the_ports_own_loop(arch, capsys):
     from repro_torch.launch import serve
 
