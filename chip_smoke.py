@@ -116,6 +116,24 @@ Phases, each fatal on failure:
    its shared block, one tail layer) on the card and on the CPU. Prefill
    and decode milliseconds, peak device memory, bytes offered and
    received, stamped with the card.
+11. train: internlm2-1.8b at full width (float32 parameters, bfloat16
+   compute) trained through ``launch/train.main`` for 50 steps on
+   ``build_data``'s replica-fed 4 x 64 batches, with the launch counters
+   set to 0 just before and read just after: the subscription's refresh at
+   the 50th batch runs K1 and K2 on the card. AdamW with launch/train's
+   cosine warm-up, weight decay and clipping; one snapshot (params, m, v in
+   the reference's layout) at the last step, timed, in a temporary
+   directory under ``build/`` after a check of the free disk, removed
+   after. The median step time after warm-up (the loss read back inside
+   the timed step), tokens/s, first and last loss, peak device memory.
+   Then ``ErrorFeedbackInt8(AdamW)`` for 3 steps at full width with its
+   peak memory; a failure injected at step 4 of internlm2 cut to 2 layers
+   and a new ``Trainer`` that resumes at the step-3 snapshot and continues
+   with step 4; and at 2 layers in float32 with TF32 off, the gradients of
+   one ``train_loss`` and the parameters after one AdamW step on the card
+   and on the CPU from the same weights (tolerances at ``GRAD_TOL`` and
+   ``STEP_REL``), and ``quantize_int8`` of every card gradient on both,
+   bit for bit. No step falls back to the CPU.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, when no CUDA card is available
@@ -2354,6 +2372,284 @@ def phase_models(tcore, device, seed, card, football_rows, dictionary):
         "of it")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training on the replica-to-token path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"
+# build_data refreshes its subscription at its 50th batch, where the engine's
+# step runs the triple match (K1) and the probe (K2) on the card
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 50, 4, 64
+TRAIN_WARMUP = 3  # steps left out of the median step time
+EF_STEPS = 3  # ErrorFeedbackInt8(AdamW) steps at full width
+# failure and resume at 2 layers: a snapshot every 3 steps, a failure at step
+# 4, a new Trainer resumes at 3 and runs steps 4 and 5 (no second snapshot)
+RESUME_LAYERS, RESUME_EVERY, RESUME_FAIL, RESUME_MORE = 2, 3, 4, 2
+RESUME_TOL = 1e-3  # |step-4 loss resumed - step-4 loss of the failed run| / |loss|, bfloat16 compute
+# card vs CPU, 2 layers, float32, TF32 off: each gradient leaf's max |card - CPU| over its largest
+# magnitude on the CPU; after one AdamW step the parameters, where the CPU gradient is at least
+# STEP_DIRECTED of its leaf's largest (Adam's first step is g / (|g| + eps): its direction is fixed
+# by the gradient there, not by rounding), to two float32 ulps of the updated parameter (its own
+# rounding) plus STEP_REL of the step lr; elsewhere to 2 lr (a direction flipped by rounding), their
+# count reported. The directed elements were first held to 1e-7 absolute and read 1.192e-07 on an
+# H100: the norms' scales start at 1, where a float32 ulp is 1.19e-7, and p - lr * delta rounds one
+# ulp apart when the deltas differ in their last bits. Two ulps of the updated parameter alone then
+# read millions of ulps where p - lr * delta cancels to near 0 and the ulp is tiny, so the bound
+# adds a share of the step
+GRAD_TOL = 1e-4
+STEP_DIRECTED, STEP_REL = 1e-3, 1e-3
+SNAPSHOT_HEADROOM = 1.25  # free disk needed, over the snapshot's reckoned bytes
+
+
+def train_opt(steps):
+    """``launch/train``'s optimizer: cosine warm-up to 1e-3 over 10 steps,
+    weight decay 0.01, clipping at 1."""
+    from repro_torch.optim import AdamW, cosine_warmup
+
+    return AdamW(learning_rate=cosine_warmup(1e-3, 10, steps), weight_decay=0.01, max_grad_norm=1.0)
+
+
+def train_full_width(device, card):
+    """internlm2-1.8b at full width through ``launch/train.main``: 50 steps
+    on ``build_data``'s replica-fed batches, one timed snapshot at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.runtime import trainer
+
+    cfg = get_config(TRAIN_ARCH)
+    snap_bytes = 3 * 4 * cfg.n_params  # float32 parameters, m and v
+    (REPO / "build").mkdir(exist_ok=True)
+    free = shutil.disk_usage(REPO / "build").free
+    log(f"train: disk free under build/ {free / 1e9:.1f} GB; a full-width snapshot reckoned at {snap_bytes / 1e9:.1f} GB")
+    check(free >= SNAPSHOT_HEADROOM * snap_bytes, f"train: {free / 1e9:.1f} GB free for a {snap_bytes / 1e9:.1f} GB snapshot")
+    saves, writes = [], []
+    save, write = trainer.Trainer.save, CheckpointStore.save
+
+    def timed_save(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self)
+        saves.append((self.step, time.perf_counter() - t0))
+
+    def timed_write(self, *args, **kw):
+        t0 = time.perf_counter()
+        write(self, *args, **kw)
+        writes.append(time.perf_counter() - t0)
+
+    tmp = Path(tempfile.mkdtemp(prefix="train-", dir=REPO / "build"))
+    trainer.Trainer.save, CheckpointStore.save = timed_save, timed_write
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--device", str(device), "--ckpt-dir", str(tmp),
+                           "--ckpt-every", str(TRAIN_STEPS)])
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        nbytes = dir_bytes(tmp)
+    finally:
+        trainer.Trainer.save, CheckpointStore.save = save, write
+        shutil.rmtree(tmp, ignore_errors=True)
+    loss = np.array([h["loss"] for h in hist])
+    dts = np.array([h["dt"] for h in hist])
+    check([h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1)), "train: a history record a step")
+    check(bool(np.isfinite(loss).all()), f"train: non-finite loss {loss}")
+    check(loss[-5:].mean() < loss[:5].mean(), f"train: the loss did not fall: {loss[:5]} ... {loss[-5:]}")
+    check(launches["triple_match"] > 0 and launches["merge_probe"] > 0,
+          f"train: build_data's refresh launched no K1 or K2 on the card: {launches}")
+    check(len(saves) == 1 and saves[0][0] == TRAIN_STEPS, f"train: snapshots {saves}")
+    med = float(np.median(dts[TRAIN_WARMUP:]))
+    log(f"train [{card}]: {TRAIN_ARCH} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab:,}; {cfg.n_params / 1e9:.3f}B float32 parameters, bfloat16 compute) through launch/train.main: "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} replica tokens, AdamW (cosine warm-up to 1e-3, "
+        f"decay 0.01, clip 1)")
+    log(f"train [{card}]: step {med * 1e3:.2f} ms median after {TRAIN_WARMUP} warm-up steps (min {dts.min() * 1e3:.2f}, "
+        f"max {dts[TRAIN_WARMUP:].max() * 1e3:.2f}; first step {dts[0] * 1e3:.1f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:,.0f} tokens/s; loss {loss[0]:.4f} -> {loss[-1]:.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches in the run {launches}; main {wall:.1f} s")
+    log(f"train [{card}]: snapshot at step {saves[0][0]}: {saves[0][1]:.2f} s, {nbytes / 1e9:.2f} GB "
+        f"({nbytes / saves[0][1] / 1e9:.2f} GB/s; params, m and v in the reference's layout): to host arrays "
+        f"{saves[0][1] - writes[0]:.2f} s, the store's .npz write {writes[0]:.2f} s")
+    check(snap_bytes <= nbytes <= 1.01 * snap_bytes + 2**20, f"train: snapshot of {nbytes} bytes, reckoned {snap_bytes}")
+    return launches
+
+
+def train_error_feedback(device, card, seed):
+    """A few ``ErrorFeedbackInt8(AdamW)`` steps at full width, with their peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.compression import ErrorFeedbackInt8
+
+    cfg = get_config(TRAIN_ARCH)
+    model = fresh_model(cfg, device, seed)
+    opt = ErrorFeedbackInt8(train_opt(TRAIN_STEPS))
+    step = make_train_step(model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    rng = np.random.default_rng(seed + 11)
+    losses, times = [], []
+    for _ in range(EF_STEPS):
+        tokens = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    res = max(float(r.abs().max()) for r in state["residual"].values())
+    check(bool(np.isfinite(losses).all()) and np.isfinite(res) and res > 0, f"error feedback: losses {losses}, residual {res}")
+    check(int(state["inner"]["step"]) == EF_STEPS, "error feedback: the inner step count")
+    log(f"train [{card}]: ErrorFeedbackInt8(AdamW) at full width, {EF_STEPS} steps: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, losses {', '.join(f'{x:.4f}' for x in losses)}, largest "
+        f"|residual| {res:.3e}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def train_resume(device, card, seed):
+    """internlm2 cut to 2 layers: a failure injected after a snapshot, and a
+    new Trainer that resumes from it and continues the history."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    tokens = np.random.default_rng(seed + 12).integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def setup():
+        model = fresh_model(cfg, device, seed)
+        opt = train_opt(TRAIN_STEPS)
+        return make_train_step(model, opt), lambda: (model, opt.init(dict(model.named_parameters())))
+
+    tmp = Path(tempfile.mkdtemp(prefix="resume-", dir=REPO / "build"))
+    try:
+        tc = TrainerConfig(ckpt_dir=str(tmp), ckpt_every=RESUME_EVERY)
+        step, init_state = setup()
+        first = Trainer(step, init_state, iter(lambda: batch, None), tc)
+        t0 = time.perf_counter()
+        try:
+            first.run(RESUME_FAIL + 5, inject_failure_at=RESUME_FAIL)
+            raise SmokeFailure("resume: the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        t_first = time.perf_counter() - t0
+        nbytes = dir_bytes(tmp)
+        failed = first.history
+        del first, step, init_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        step, init_state = setup()
+        second = Trainer(step, init_state, iter(lambda: batch, None), tc)
+        t_restore = time.perf_counter() - t0
+        resumed_at = second.step
+        check(resumed_at == RESUME_EVERY, f"resume: resumed at step {resumed_at}, the snapshot is {RESUME_EVERY}")
+        hist = second.run(RESUME_MORE)
+        steps = [h["step"] for h in hist]
+        check(steps == list(range(RESUME_EVERY + 1, RESUME_EVERY + 1 + RESUME_MORE)), f"resume: history steps {steps}")
+        gap = abs(hist[0]["loss"] - failed[RESUME_EVERY]["loss"]) / abs(failed[RESUME_EVERY]["loss"])
+        check(all(np.isfinite(h["loss"]) for h in hist), "resume: finite losses")
+        log(f"train [{card}]: failure and resume, {TRAIN_ARCH} cut to {RESUME_LAYERS} layers (bfloat16 compute): "
+            f"failed at step {RESUME_FAIL} after a snapshot at {RESUME_EVERY} ({nbytes / 1e9:.2f} GB; "
+            f"{t_first:.1f} s with it), a new Trainer resumed at {resumed_at} in {t_restore:.1f} s and ran steps "
+            f"{steps}; step {RESUME_EVERY + 1} loss {hist[0]['loss']:.5f} resumed vs {failed[RESUME_EVERY]['loss']:.5f} "
+            f"before the failure (relative gap {gap:.2e}, tolerance {RESUME_TOL:g})")
+        check(gap <= RESUME_TOL, f"resume: step {RESUME_EVERY + 1} loss gap {gap} > {RESUME_TOL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_card_vs_cpu(device, card, seed):
+    """internlm2 cut to 2 layers, float32, TF32 off: the gradients of one
+    ``train_loss`` and the parameters after one AdamW step on the card and
+    on the CPU from the same weights; ``quantize_int8`` of every card
+    gradient on both, bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.compression import quantize_int8
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS, dtype="float32")
+    tokens = np.random.default_rng(seed + 13).integers(0, cfg.vocab, (SYNC_BATCH, SYNC_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    opt = train_opt(TRAIN_STEPS)
+    lr = float(opt.learning_rate(1))
+    got = {}
+    with float32_matmuls():
+        on_card = fresh_model(cfg, device, seed)
+        on_cpu = build_model(cfg, "cpu")
+        on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+        for where, model in (("card", on_card), ("cpu", on_cpu)):
+            t0 = time.perf_counter()
+            model.requires_grad_(True)
+            params = dict(model.named_parameters())
+            loss, _ = model.train_loss(batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            opt.update(grads, opt.init(params), params)
+            got[where] = (float(loss.detach()), grads, params, time.perf_counter() - t0)
+    loss_gap = abs(got["card"][0] - got["cpu"][0])
+    grad_gap, step_gap, step_excess, flipped, n_el, q_equal = 0.0, 0.0, 0.0, 0, 0, True
+    with torch.no_grad():
+        for name, g_cpu in got["cpu"][1].items():
+            g_card = got["card"][1][name]
+            scale = float(g_cpu.abs().max()) or 1.0
+            grad_gap = max(grad_gap, float((g_card.cpu() - g_cpu).abs().max()) / scale)
+            p_cpu = got["cpu"][2][name].abs()
+            dp = (got["card"][2][name].cpu() - got["cpu"][2][name]).abs()
+            ulp = torch.nextafter(p_cpu, torch.full_like(p_cpu, float("inf"))) - p_cpu
+            excess = (dp - 2 * ulp).clamp(min=0) / lr  # beyond the parameter's own rounding, in steps
+            directed = g_cpu.abs() >= STEP_DIRECTED * scale
+            if bool(directed.any()):
+                step_gap = max(step_gap, float(dp[directed].max()))
+                step_excess = max(step_excess, float(excess[directed].max()))
+            flipped += int((excess[~directed] > STEP_REL).sum())
+            n_el += dp.numel()
+            check(float(dp.max()) <= 2 * lr * 1.01, f"card vs CPU: {name} moved {float(dp.max())} apart after one step")
+            q_card, s_card = quantize_int8(g_card)
+            q_cpu, s_cpu = quantize_int8(g_card.cpu())
+            q_equal &= torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu)
+    log(f"train [{card}]: card vs CPU, {TRAIN_ARCH} cut to {RESUME_LAYERS} layers, float32, TF32 off, batch "
+        f"{SYNC_BATCH} x {SYNC_SEQ}: |Δ loss| {loss_gap:.3e}; gradients max |Δ| / leaf max {grad_gap:.3e} "
+        f"(tolerance {GRAD_TOL:g}); after one AdamW step (lr {lr:.1e}) max |Δ param| where the direction is set "
+        f"{step_gap:.3e}, beyond two ulps of the parameter {step_excess:.3e} of the step (tolerance {STEP_REL:g}), "
+        f"{flipped:,} of {n_el:,} other elements beyond it; quantize_int8 "
+        f"of every gradient {'bit-identical' if q_equal else 'DIFFERENT'}; card {got['card'][3]:.2f} s, CPU "
+        f"{got['cpu'][3]:.2f} s")
+    check(grad_gap <= GRAD_TOL, f"card vs CPU gradients: {grad_gap} > {GRAD_TOL}")
+    check(step_excess <= STEP_REL, f"card vs CPU after one step: {step_excess} of the step > {STEP_REL}")
+    check(q_equal, "card vs CPU: quantize_int8 differs")
+
+
+def phase_train(device, seed, card):
+    """Training on the replica-to-token path (module docstring, phase 11)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches = train_full_width(device, card)
+    for part in (lambda: train_error_feedback(device, card, seed),
+                 lambda: train_resume(device, card, seed),
+                 lambda: train_card_vs_cpu(device, card, seed)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        part()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: phase in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def four_ways(bgp, ogp):
     """One interest written four ways: as is, with its variables renamed,
     with its BGP patterns reordered, and both."""
@@ -2886,6 +3182,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_models(tcore, device, args.seed, card, football_rows, football_dictionary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(device, args.seed, card)
     mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not mods, f"the port loaded JAX or the JAX package: {mods}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -16,9 +16,13 @@ The model plane serves the reference's attention families
 reference by ``repro_torch.models.convert``), with interest-filtered
 parameter sync (``repro_torch.core.param_sync``), replica-fed token batches
 (``repro_torch.data``) and a serving driver (``repro_torch.launch.serve``).
+Training runs on autograd: AdamW, its schedules and error-feedback int8
+compression (``repro_torch.optim``), the fault-tolerant ``Trainer``
+(``repro_torch.runtime``) and a training driver fed by a replica
+(``repro_torch.launch.train``).
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
-from . import checkpoint, core, kernels, testing
+from . import checkpoint, core, kernels, optim, runtime, testing
 from .core import (
     Broker,
     BrokerStats,
@@ -76,8 +80,10 @@ __all__ = [
     "make_cohort_step",
     "make_distributed_evaluator",
     "make_sharded_cohort_step",
+    "optim",
     "partition_rows",
     "prepare_target_shards",
+    "runtime",
     "to_numpy",
     "testing",
     "to_set",

@@ -1,5 +1,6 @@
-"""Launch layer on PyTorch: the serving steps and driver (``steps``, ``serve``).
+"""Launch layer on PyTorch: the step builders (``steps``), the serving
+driver (``serve``) and the training driver (``train``).
 
 The reference's TPU launch tooling (dry-run, HLO, roofline, sharding plans,
-meshes) and its training driver are not ported yet (ROADMAP A15, A14c).
+meshes) is not ported yet (ROADMAP A15).
 """

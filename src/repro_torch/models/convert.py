@@ -9,11 +9,17 @@ leading axes (``blocks`` (L, ...); ``local_groups`` (G, per-1, ...),
 unstacked). The port keeps one module per layer in
 layer order. A leaf at path ``(stack, *keys)`` and leading index ``idx`` is
 the port's parameter ``<prefix of stack and idx>.<keys joined by dots>``;
-an unstacked leaf's name is its path joined by dots. numpy and torch only.
+an unstacked leaf's name is its path joined by dots. The mapping holds for
+any tree with one leaf per parameter: the weights, their gradients,
+AdamW's moments ``m`` and ``v`` and the error-feedback ``residual``
+(``tree_to_jax``, ``params_from_jax``). ``state_to_jax`` and
+``state_from_jax`` carry a whole optimizer state: its per-parameter dicts
+map so, and its other leaves (``step``) stay arrays. numpy and
+torch only.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Collection, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -81,21 +87,22 @@ def iter_port_leaves(cfg: ModelConfig, tree) -> Iterator[Tuple[str, np.ndarray]]
 
 
 def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
-    """The reference's ``init`` pytree, as numpy arrays, as the port's state dict."""
+    """A reference per-parameter pytree (``init``'s weights, or their
+    gradients, moments or residuals), as numpy arrays, as the port's dict of
+    CPU tensors keyed by parameter name (for the weights: a state dict)."""
     return {name: torch.from_numpy(np.array(arr, copy=True))
             for name, arr in iter_port_leaves(cfg, tree)}
 
 
-def params_to_jax(cfg: ModelConfig, model) -> dict:
-    """The inverse of ``params_from_jax``: the model's parameters as the
-    reference's pytree of (stacked) numpy arrays."""
+def tree_to_jax(cfg: ModelConfig, named: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_jax``: a dict keyed by the port's
+    parameter names as the reference's pytree of (stacked) numpy arrays."""
     owner = {}
     for stack, (lead, prefix) in _stacks(cfg).items():
         for idx in np.ndindex(*lead):
             owner[prefix(*idx)] = (stack, lead, idx)
     tree: dict = {}
-    for name, t in model.state_dict().items():
-        arr = t.detach().cpu().numpy()
+    for name, t in named.items():
         parts = name.split(".")
         at = owner.get(".".join(parts[:2]))
         if at is None:
@@ -107,6 +114,40 @@ def params_to_jax(cfg: ModelConfig, model) -> dict:
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         if keys[-1] not in node:
-            node[keys[-1]] = np.empty(lead + arr.shape, arr.dtype)
-        node[keys[-1]][idx] = arr
+            dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+            node[keys[-1]] = np.empty(lead + tuple(t.shape), dtype)
+        # straight from the tensor's device into the stacked array (a view)
+        torch.from_numpy(node[keys[-1]][idx + (...,)]).copy_(t.detach())
     return tree
+
+
+def params_to_jax(cfg: ModelConfig, model) -> dict:
+    """The model's parameters as the reference's pytree of (stacked) numpy arrays."""
+    return tree_to_jax(cfg, model.state_dict())
+
+
+def _per_parameter(node, names: Collection[str]) -> bool:
+    return isinstance(node, dict) and bool(node) and node.keys() == set(names)
+
+
+def state_to_jax(cfg: ModelConfig, state, names: Collection[str]) -> Any:
+    """An optimizer state (nested dicts) in the reference's layout: each dict
+    keyed by exactly the parameter ``names`` through ``tree_to_jax``, every
+    other tensor as a numpy array."""
+    if _per_parameter(state, names):
+        return tree_to_jax(cfg, state)
+    if isinstance(state, dict):
+        return {k: state_to_jax(cfg, v, names) for k, v in state.items()}
+    return state.detach().cpu().numpy()
+
+
+def state_from_jax(cfg: ModelConfig, tree, like, names: Collection[str]) -> Any:
+    """The inverse of ``state_to_jax``: ``tree`` (the reference's layout,
+    numpy leaves) in the structure of the port's state ``like``, each leaf
+    a tensor of ``like``'s leaf's dtype on its device."""
+    if _per_parameter(like, names):
+        flat = params_from_jax(cfg, tree)
+        return {k: flat[k].to(t.device, t.dtype) for k, t in like.items()}
+    if isinstance(like, dict):
+        return {k: state_from_jax(cfg, tree[k], v, names) for k, v in like.items()}
+    return torch.as_tensor(np.asarray(tree), dtype=like.dtype, device=like.device)

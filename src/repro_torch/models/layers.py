@@ -11,8 +11,9 @@ Each parameter group is an ``nn.Module`` (``Norm``, ``Attention``, ``Mlp``,
 ``wk``, ``scale``, ``router``, ...), so a parameter's name says which leaf
 of the reference's tree it is (``models/convert.py``). ``draw(generator)``
 fills a module's parameters with the reference's initial scales.
-Parameters carry no gradient: the port serves, and training waits for
-ROADMAP A14c. The functions keep the reference's names and arithmetic: the
+Parameters are made with ``requires_grad=False``, so that serving records
+no graph; ``launch.steps.make_train_step`` turns gradients on for the
+model it trains. The functions keep the reference's names and arithmetic: the
 same einsum orders, float32 softmax and norms, ``NEG_INF`` masks and
 GShard capacity dispatch, on plain torch operations.
 

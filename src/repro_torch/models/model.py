@@ -4,7 +4,7 @@
 Every family is an ``nn.Module`` with the reference's five entry points as
 methods (``Model``, the counterpart of ``ModelApi``):
   init(generator)                     -> draws every parameter
-  train_loss(batch)                   -> (loss, metrics), forward value only
+  train_loss(batch)                   -> (loss, metrics), differentiable
   prefill(batch)                      -> (last_logits, cache)
   decode_step(cache, tokens, pos)     -> (logits, cache)
   init_cache(batch_size, max_seq)     -> cache dict
@@ -110,6 +110,7 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` (on the model's device)
         with the reference's scales; norms are ones and zeros, gates zero."""

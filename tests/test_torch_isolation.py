@@ -21,6 +21,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.models, repro_torch.models.convert, repro_torch.models.ssm, repro_torch.configs\n"
         "import repro_torch.core.param_sync\n"
         "import repro_torch.data.pipeline, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.optim.compression, repro_torch.runtime, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
     )
